@@ -1,9 +1,8 @@
-"""Default-config flagship product rate (r4 VERDICT item 2 'Done').
+"""Default-config flagship product rate.
 
-Runs `python -m mara3_tpu binary` at the official d6b96 geometry with NO
-multi_launch override — whatever the shipped default resolves to is what
-gets measured — through the real driver (checkpoint/diagnostics/time
-series scheduling included), and reports the sustained in-run kzps: the
+Runs `python -m mara3_tpu binary` at the d6b96 geometry with the shipped
+defaults through the real driver (checkpoint/diagnostics/time series
+scheduling included), and reports the sustained in-run kzps: the
 median of the [iter] lines over the second half of the run, which skips
 compile + warmup chunks the way a user-facing sustained rate should.
 

@@ -1,9 +1,8 @@
 """Default-path cloud product rate (the bench_product_binary analog).
 
-Runs `python -m mara3_tpu cloud` at the official nr=1024 rk2 geometry
-with NO multi_launch override — whatever the shipped default resolves
-to is what gets measured — through the real driver (checkpoint/
-diagnostics/time-series scheduling included), and reports the sustained
+Runs `python -m mara3_tpu cloud` at the nr=1024 rk2 geometry with the
+shipped defaults through the real driver (checkpoint/diagnostics/
+time-series scheduling included), and reports the sustained
 in-run kzps: the median of the [iter] lines over the second half.
 
 Prints one PRODUCT_RESULT json line.

@@ -11,16 +11,16 @@ common parts are factored once:
 - the timed run loop printing ``[iter] t=... kzps=...`` per step
   (reference subprog_boilerplate.cpp:252-256 et al.)
 
-TPU-native note: each subprogram supplies a jit-compiled ``next`` step; the
-driver loop stays on the host and only synchronizes when printing or when a
-scheduled task moves data to disk.
+Each subprogram supplies a jit-compiled ``next`` step; the driver loop
+stays on the host and only synchronizes when printing or when a scheduled
+task moves data to disk.
 """
 
 from __future__ import annotations
 
 import os
 
-import h5py
+import jax
 
 from mara3_tpu.app import serialize
 from mara3_tpu.app.config import Config, ConfigTemplate, argv_to_string_map
@@ -30,6 +30,7 @@ from mara3_tpu.app.schedule import Schedule
 
 def create_run_config(template: ConfigTemplate, argv) -> Config:
     """argv -> config with checkpoint-restart merge semantics."""
+    import h5py
     args = argv_to_string_map(argv)
     cfg = template.create()
     if "restart" in args and args["restart"]:
@@ -47,6 +48,7 @@ def create_run_config(template: ConfigTemplate, argv) -> Config:
 
 def create_schedule(run_config: Config, task_names) -> Schedule:
     """Fresh schedule with every task initially due, or the checkpoint's."""
+    import h5py
     restart = run_config.get_string("restart") if "restart" in run_config else ""
     if restart:
         with h5py.File(restart, "r") as f:
@@ -55,6 +57,18 @@ def create_schedule(run_config: Config, task_names) -> Schedule:
     for name in task_names:
         s = s.mark_as_due(name)
     return s
+
+
+def use_fast_driver(run_config: Config) -> bool:
+    """The ``fast_step`` option: 1 runs the device-resident chunked driver
+    (one dispatch per chunk of steps), 0 the per-step host loop, -1 picks
+    the chunked driver on any accelerator backend and the host loop on
+    the CPU, where it stays the reference the chunked driver is tested
+    against."""
+    fast = run_config.get_int("fast_step")
+    if fast < 0:
+        return jax.default_backend() != "cpu"
+    return fast != 0
 
 
 def checkpoint_path(run_config: Config, count: int, prefix: str = "chkpt") -> str:
@@ -69,6 +83,7 @@ def write_checkpoint_groups(path: str, run_config: Config,
                             schedule: Schedule, write_solution_fn):
     """Create chkpt file with the reference's three groups; the caller's
     write_solution_fn(group) fills the solution group."""
+    import h5py
     with h5py.File(path, "w") as f:
         write_solution_fn(f.require_group("solution"))
         serialize.write_schedule(f.require_group("schedule"), schedule)

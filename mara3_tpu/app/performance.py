@@ -3,7 +3,7 @@
 Re-design of the reference's perf tools (src/app_performance.hpp:43-78): a
 ``time_execution`` wrapper that reports execution time in ms, ``compose``,
 and the kzps (kilo-zone-updates per second) meter every subprogram prints
-(e.g. subprog_binary.cpp:394-404). On TPU, timed functions must synchronize
+(e.g. subprog_binary.cpp:394-404). On an accelerator, timed functions must synchronize
 on their outputs — jax dispatch is async — so ``time_execution`` calls
 ``block_until_ready`` on any jax arrays in the result.
 """
@@ -37,10 +37,7 @@ def _block(result):
         for item in result:
             _block(item)
         return result
-    try:
-        return jax.block_until_ready(result)
-    except Exception:
-        return result
+    return jax.block_until_ready(result)
 
 
 def time_execution(fn, *args, **kwargs):

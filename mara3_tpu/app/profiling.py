@@ -1,7 +1,7 @@
 """Profiling hooks: jax.profiler traces alongside the kzps meter.
 
 The reference's only performance instrumentation is wall-clock timing
-(app_performance.hpp) and the per-step kzps print (SURVEY.md §5). The TPU
+(app_performance.hpp) and the per-step kzps print (SURVEY.md §5). The JAX
 equivalent adds real tracer spans: wrap any region in ``trace`` to capture a
 TensorBoard/Perfetto trace of the compiled programs, DMAs, and collectives.
 
@@ -21,12 +21,9 @@ import os
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """jax.profiler.trace context (no-op if profiling is unavailable)."""
+    """jax.profiler.trace context."""
     import jax
-    try:
-        with jax.profiler.trace(log_dir):
-            yield
-    except Exception:
+    with jax.profiler.trace(log_dir):
         yield
 
 

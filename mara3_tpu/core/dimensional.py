@@ -1,6 +1,6 @@
 """Dimensional analysis as a zero-cost pytree wrapper.
 
-TPU-native re-design of the reference's compile-time dimensional values
+JAX re-design of the reference's compile-time dimensional values
 (reference: src/core_dimensional.hpp:42-160). There, every physical scalar is
 a ``dimensional_value_t<C,G,S>`` whose (length, mass, time) exponents are
 template parameters: addition requires identical dimensions, multiplication

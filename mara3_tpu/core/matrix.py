@@ -8,6 +8,7 @@ matrices from broadcastable entries.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -44,8 +45,10 @@ def column_vector(*entries):
 
 
 def matrix_product(a, b):
-    """(core_matrix.hpp:326): batched matmul over leading axes."""
-    return jnp.einsum("...ij,...jk->...ik", a, b)
+    """(core_matrix.hpp:326): batched matmul over leading axes, at full
+    precision (a default-precision f32 contraction may run in TF32)."""
+    return jnp.einsum("...ij,...jk->...ik", a, b,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def from_rows(rows):

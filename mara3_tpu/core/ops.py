@@ -1,6 +1,6 @@
 """Stencil and boundary-condition building blocks for finite-volume schemes.
 
-TPU-native re-design of the reference's lazy one-liner array operators
+JAX re-design of the reference's lazy one-liner array operators
 (reference: src/core_ndarray_ops.hpp:39-190 and the nd:: transformer suite in
 src/core_ndarray.hpp). The reference builds lazy provider graphs composed with
 ``operator|``; under ``jax.jit`` every function here is traced into a single

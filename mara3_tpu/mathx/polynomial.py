@@ -1,7 +1,7 @@
 """Closed-form cubic/quartic roots and parabola vertex.
 
 Re-design of src/math_polynomial.hpp:52-215. Vectorized over jnp arrays with
-branchless `where` selection (TPU-friendly: every branch is computed, the
+branchless `where` selection (jit-friendly: every branch is computed, the
 mask picks). Returns the same root multiplicity conventions as the reference:
 cubic -> (x1, x2, x3, num_roots), quartic -> (x1..x4, pair1_real, pair2_real).
 

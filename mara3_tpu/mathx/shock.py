@@ -2,7 +2,7 @@
 
 Re-design of src/post_shock_locator.hpp:74-152. The reference walks indices
 with data-dependent while loops; here each locator is a fixed-shape masked
-scan so it stays jit-compatible (TPU rule: no data-dependent Python control
+scan so it stays jit-compatible (jit rule: no data-dependent Python control
 flow). Semantics match the reference on the profiles it targets.
 """
 

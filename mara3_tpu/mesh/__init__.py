@@ -1,7 +1,7 @@
 """Block-structured AMR (maps reference layer 4: core_tree.hpp,
 mesh_prolong_restrict.hpp, mesh_tree_operators.hpp).
 
-TPU-native design (SURVEY.md §7.7): the reference's immutable pointer
+Design (SURVEY.md §7.7): the reference's immutable pointer
 quadtree of per-block arrays becomes
 
 - a host-side static quadtree builder (tree.py): refinement predicate,

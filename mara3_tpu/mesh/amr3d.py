@@ -107,7 +107,7 @@ def _slab(u, ids, axis, side):
     j = n - 1 if side == 0 else 0
     # slice the face BEFORE gathering: the gather then moves one face
     # slab per block instead of whole 16^3 blocks (16x less traffic —
-    # this is the dominant cost of the jnp octree step on TPU)
+    # the gather was the dominant cost of the jnp octree step)
     uf = jax.lax.index_in_dim(u, j, axis=axis + 1, keepdims=False)
     return jnp.take(uf, ids, axis=0)
 

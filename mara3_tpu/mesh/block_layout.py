@@ -37,28 +37,6 @@ class NeighborTable:
     fine_id: np.ndarray    # [B, 4, 2] ordered by the perpendicular coordinate
 
 
-def pad_neighbor_table(nt: NeighborTable, pad: int) -> NeighborTable:
-    """Extend the table with `pad` SELF-NEIGHBORING rows (case 0, every
-    face pointing at the pad block itself). Used by the persistently
-    padded flagship state: guard/strip tables built from the padded table
-    produce [Bp]-sized outputs directly, so the hot step never runs a
-    jnp.pad — and the pad blocks only ever read their own (benign, frozen)
-    data."""
-    if pad == 0:
-        return nt
-    B = nt.case.shape[0]
-    self_ids = np.repeat(np.arange(B, B + pad, dtype=np.int32)[:, None],
-                         4, axis=1)
-    z = np.zeros((pad, 4), np.int32)
-    return NeighborTable(
-        case=np.concatenate([nt.case, z]),
-        same_id=np.concatenate([nt.same_id, self_ids]),
-        coarse_id=np.concatenate([nt.coarse_id, z]),
-        coarse_half=np.concatenate([nt.coarse_half, z]),
-        fine_id=np.concatenate(
-            [nt.fine_id, np.zeros((pad, 4, 2), np.int32)]))
-
-
 def _face_neighbors(leaves: List[TreeIndex]):
     index_of = {leaf: b for b, leaf in enumerate(leaves)}
     leaf_set = set(leaves)
@@ -266,10 +244,12 @@ def get_vertex_block(leaves, vertex_blocks, index):
 # fast guard exchange: one gather + weighted sum
 #
 # extend_blocks above evaluates three candidate strips (same/coarse/fine)
-# and mask-selects — ~20 XLA ops per axis. For launch-bound meshes (the
-# flagship: O(100) blocks of 24-32 cells) this dominates the step. Every
-# guard cell is a linear combination of at most 4 source cells, so the
-# whole exchange collapses to one precomputed gather + einsum.
+# and mask-selects — ~20 XLA ops per axis. Every guard cell is a linear
+# combination of at most 4 source cells, so the whole exchange collapses
+# to one precomputed gather plus a 4-tap weighted sum. The sum is written
+# elementwise (never as a dot) so it is exact in f32 on every backend: a
+# matrix unit may round f32 operands (TF32 on NVIDIA GPUs), which would
+# break the exact guard copies and conservation to round-off.
 # -----------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -312,7 +292,9 @@ def build_guard_gather(nt: NeighborTable, bs: int) -> GuardGather:
                         nb = nt.fine_id[b, f, 0 if p < bs // 2 else 1]
                         q = (2 * p) % bs
                         e2 = (bs - 2, bs - 1) if side == 0 else (1, 0)
-                        # 2x2 average of the fine neighbor's edge cells
+                        # 2x2 average of the fine neighbor's edge cells;
+                        # taps (0, 2) and (1, 3) are the two cells normal
+                        # to the face at q and q + 1
                         cells = ([(nb, e2[0], q), (nb, e2[0], q + 1),
                                   (nb, e2[1], q), (nb, e2[1], q + 1)]
                                  if axis == 0 else
@@ -325,54 +307,39 @@ def build_guard_gather(nt: NeighborTable, bs: int) -> GuardGather:
 
 
 def extend_blocks_fast(U, gg: GuardGather, axis: int):
-    """extend_blocks with g=1 as one gather + weighted sum. Matches
-    extend_blocks(U, nt, axis, 1) to round-off (the fine-case average is
-    summed in one pass rather than pairwise)."""
+    """extend_blocks with g=1 as one gather + weighted sum, bitwise equal
+    to extend_blocks(U, nt, axis, 1): copies carry weight 1 on one tap,
+    and the fine-case average sums the taps pairwise in extend_blocks'
+    order (normal direction first), with power-of-two weights that scale
+    exactly."""
     B, bs = U.shape[0], gg.bs
     C = U.shape[-1]
     flat = U.reshape(B * bs * bs, C)
     f_lo, f_hi = 2 * axis, 2 * axis + 1
     ii = jnp.asarray(gg.indices[:, (f_lo, f_hi)])        # [B, 2, bs, 4]
-    ww = jnp.asarray(gg.weights[:, (f_lo, f_hi)], U.dtype)
-    vals = flat[ii]                                      # [B, 2, bs, 4, C]
-    guards = jnp.einsum("bfpm,bfpmc->bfpc", ww, vals)    # [B, 2, bs, C]
+    ww = jnp.asarray(gg.weights[:, (f_lo, f_hi)], U.dtype)[..., None]
+    t = ww * flat[ii]                                    # [B, 2, bs, 4, C]
+    guards = ((t[:, :, :, 0] + t[:, :, :, 2])
+              + (t[:, :, :, 1] + t[:, :, :, 3]))        # [B, 2, bs, C]
     if axis == 0:
-        lo = guards[:, 0][:, None, :, :].reshape(B, 1, bs, C)
-        hi = guards[:, 1][:, None, :, :].reshape(B, 1, bs, C)
+        lo = guards[:, 0].reshape(B, 1, bs, C)
+        hi = guards[:, 1].reshape(B, 1, bs, C)
         return jnp.concatenate([lo, U, hi], axis=1)
     lo = guards[:, 0].reshape(B, bs, 1, C)
     hi = guards[:, 1].reshape(B, bs, 1, C)
     return jnp.concatenate([lo, U, hi], axis=2)
 
 
-def build_soa_guard(nt: NeighborTable, bs: int, dtype=np.float64):
-    """Constants for the SoA guard exchange: one-hot [bs, bs] matrices for
-    the coarse prolongation (half-select + 2x repeat) and the fine
-    restriction (pair-sum + half-placement), applied as matmuls so the
-    exchange uses row gathers + MXU instead of scalar cell gathers (XLA
-    lowers single-element gathers at ~1 element/cycle on TPU)."""
-    half = bs // 2
-    Mh = np.zeros((2, bs, bs), dtype)          # coarse: guard[p] = row[h*half + p//2]
-    for h in (0, 1):
-        for pcol in range(bs):
-            Mh[h, h * half + pcol // 2, pcol] = 1.0
-    Pf = np.zeros((2, bs, bs), dtype)          # fine: guard[p] = 0.5*(a[2p] + a[2p+1]), half s
-    for sslot in (0, 1):
-        for pcol in range(sslot * half, (sslot + 1) * half):
-            q = (2 * pcol) % bs
-            Pf[sslot, q, pcol] = 0.5
-            Pf[sslot, q + 1, pcol] = 0.5
-    return Mh, Pf
-
-
-def guard_strips_from_edges(E, nt: NeighborTable, consts, axis: int):
+def guard_strips_from_edges(E, nt, axis: int):
     """(lo, hi) one-cell guard strips [B, C, bs] from a prebuilt edge
-    tensor E [B, C, 4, bs] holding rows/columns (0, 1, bs-2, bs-1) of every
-    block along `axis`, via row gathers + one-hot matmuls
-    (see build_soa_guard)."""
-    Mh, Pf = consts
-    Mh = jnp.asarray(Mh, E.dtype)
-    Pf = jnp.asarray(Pf, E.dtype)
+    tensor E [Bg, C, 4, bs] holding rows/columns (0, 1, bs-2, bs-1) of
+    every block along `axis` (Bg may be the global block count while `nt`
+    holds one shard's rows with global ids). Index gathers only, so the
+    strips are exact on every backend."""
+    bs = E.shape[-1]
+    half = bs // 2
+    p = np.arange(bs)
+    q = (2 * p) % bs
 
     def guard(side):
         f = 2 * axis + side
@@ -382,112 +349,20 @@ def guard_strips_from_edges(E, nt: NeighborTable, consts, axis: int):
 
         same = E[jnp.asarray(nt.same_id[:, f])][:, :, e_last]
         crow = E[jnp.asarray(nt.coarse_id[:, f])][:, :, e_last]
-        chalf = jnp.asarray(nt.coarse_half[:, f] == 0)[:, None, None]
-        coarse = jnp.where(chalf,
-                           jnp.einsum("bcq,qp->bcp", crow, Mh[0]),
-                           jnp.einsum("bcq,qp->bcp", crow, Mh[1]))
+        # coarse: guard[p] = row[h * half + p // 2], h the facing half
+        cidx = jnp.asarray(nt.coarse_half[:, f])[:, None] * half + p // 2
+        coarse = jnp.take_along_axis(crow, cidx[:, None, :], axis=2)
+        # fine: the first (second) neighbor covers p < half (p >= half)
         g0 = E[jnp.asarray(nt.fine_id[:, f, 0])]
         g1 = E[jnp.asarray(nt.fine_id[:, f, 1])]
         a0 = 0.5 * (g0[:, :, e_pair[0]] + g0[:, :, e_pair[1]])
         a1 = 0.5 * (g1[:, :, e_pair[0]] + g1[:, :, e_pair[1]])
-        fine = (jnp.einsum("bcq,qp->bcp", a0, Pf[0])
-                + jnp.einsum("bcq,qp->bcp", a1, Pf[1]))
+        fine = jnp.where(jnp.asarray(p < half),
+                         0.5 * (a0[:, :, q] + a0[:, :, q + 1]),
+                         0.5 * (a1[:, :, q] + a1[:, :, q + 1]))
 
         case = jnp.asarray(nt.case[:, f])[:, None, None]
         return jnp.where(case == 0, same,
                          jnp.where(case == 1, coarse, fine))
 
     return guard(0), guard(1)
-
-
-def guard_strips_soa(UT, nt: NeighborTable, consts, axis: int):
-    """(lo, hi) one-cell guard strips [B, C, bs] for component-first
-    blocks."""
-    bs = UT.shape[3]
-    if axis == 0:
-        E = jnp.stack([UT[:, :, 0], UT[:, :, 1],
-                       UT[:, :, bs - 2], UT[:, :, bs - 1]], axis=2)
-    else:
-        E = jnp.stack([UT[:, :, :, 0], UT[:, :, :, 1],
-                       UT[:, :, :, bs - 2], UT[:, :, :, bs - 1]], axis=2)
-    return guard_strips_from_edges(E, nt, consts, axis)
-
-
-def extend_blocks_fast_soa(UT, nt: NeighborTable, consts, axis: int):
-    """extend_blocks_fast for component-first [B, C, bs, bs] arrays.
-
-    Strategy: slice the 4 candidate edge rows/columns of every block into
-    a compact [B, C, 4, bs] tensor, gather whole neighbor rows by block id
-    (large contiguous rows — fast), then build the three guard cases with
-    one-hot matmuls. Matches extend_blocks_fast bit-for-bit up to the
-    summation order of the 4-term fine average."""
-    lo, hi = guard_strips_soa(UT, nt, consts, axis)
-    if axis == 0:
-        return jnp.concatenate([lo[:, :, None], UT, hi[:, :, None]], axis=2)
-    return jnp.concatenate([lo[..., None], UT, hi[..., None]], axis=3)
-
-
-class GuardAllTables:
-    """Host-precomputed flat row indices for guard_strips_all (round 3):
-    per face f (0 x-lo, 1 x-hi, 2 y-lo, 3 y-hi) and block b, rows into the
-    flattened [B*8, C, bs] edge tensor (x rows 0-3 = rows {0, 1, bs-2,
-    bs-1}; y cols at slots 4-7)."""
-
-    def __init__(self, nt: NeighborTable, bs: int):
-        B = nt.case.shape[0]
-        self.rows4 = np.array([0, 1, bs - 2, bs - 1])
-        same_flat = np.zeros((4, B), np.int32)
-        coarse_flat = np.zeros((4, B), np.int32)
-        fine_inner = np.zeros((4, B, 2), np.int32)
-        fine_edge = np.zeros((4, B, 2), np.int32)
-        for f in range(4):
-            a, s = f // 2, f % 2
-            slot_last = a * 4 + (3 if s == 0 else 0)
-            slot_inner = a * 4 + (2 if s == 0 else 1)
-            slot_edge = slot_last
-            same_flat[f] = nt.same_id[:, f] * 8 + slot_last
-            coarse_flat[f] = nt.coarse_id[:, f] * 8 + slot_last
-            for n in (0, 1):
-                fine_inner[f, :, n] = nt.fine_id[:, f, n] * 8 + slot_inner
-                fine_edge[f, :, n] = nt.fine_id[:, f, n] * 8 + slot_edge
-        self.same_flat = jnp.asarray(same_flat)
-        self.coarse_flat = jnp.asarray(coarse_flat)
-        self.fine_inner = jnp.asarray(fine_inner)
-        self.fine_edge = jnp.asarray(fine_edge)
-        self.chalf = jnp.asarray(nt.case.T == 1) \
-            & (jnp.asarray(nt.coarse_half.T) == 0)
-        self.case = jnp.asarray(nt.case.T)       # [4, B]
-
-
-def guard_strips_all(pT, consts, T: GuardAllTables):
-    """All four one-cell guard strips of component-first blocks in one
-    batched gather/einsum pass: returns (pxlo, pxhi, pylo, pyhi), each
-    [B, C, bs], bit-matching four guard_strips_soa calls (same one-hot
-    dots, same fine-average order) at ~1/3 the op count — each jnp op
-    costs ~5-6 us on the TPU runtime and these sit on the flagship step's
-    critical path."""
-    B, C, bs, _ = pT.shape
-    Mh, Pf = consts
-    Mh = jnp.asarray(Mh, pT.dtype)
-    Pf = jnp.asarray(Pf, pT.dtype)
-    rows4 = jnp.asarray(T.rows4)
-    Ex4 = pT[:, :, rows4]                            # [B, C, 4, bs]
-    Ey4 = jnp.swapaxes(pT[:, :, :, rows4], 2, 3)
-    E2 = jnp.concatenate([Ex4, Ey4], axis=2)         # [B, C, 8, bs]
-    E2 = jnp.swapaxes(E2, 1, 2).reshape(B * 8, C, bs)
-
-    same = E2[T.same_flat]                           # [4, B, C, bs]
-    crow = E2[T.coarse_flat]
-    chalf = T.chalf[..., None, None]
-    coarse = jnp.where(chalf,
-                       jnp.einsum("fbcq,qp->fbcp", crow, Mh[0]),
-                       jnp.einsum("fbcq,qp->fbcp", crow, Mh[1]))
-    gi = E2[T.fine_inner]                            # [4, B, 2, C, bs]
-    ge = E2[T.fine_edge]
-    a = 0.5 * (gi + ge)
-    fine = (jnp.einsum("fbcq,qp->fbcp", a[:, :, 0], Pf[0])
-            + jnp.einsum("fbcq,qp->fbcp", a[:, :, 1], Pf[1]))
-    case = T.case[..., None, None]
-    out = jnp.where(case == 0, same,
-                    jnp.where(case == 1, coarse, fine))
-    return out[0], out[1], out[2], out[3]

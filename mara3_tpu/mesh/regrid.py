@@ -5,7 +5,7 @@ never adapt during a run, which is a big simplification') — its AMR is
 static focusing. This module goes beyond: periodically rebuild the leaf set
 from a per-block indicator and remap the state between layouts.
 
-TPU-native shape of the problem: the mesh is *static between regrids*, so
+Shape of the problem: the mesh is *static between regrids*, so
 the step function stays a fixed-shape jit program; a regrid changes the
 number of blocks, triggering one recompilation — amortized by the regrid
 interval and by the persistent compilation cache (block counts repeat).

@@ -15,7 +15,7 @@ Differences from the host path, by design:
   - Kepler's Newton iteration is a FIXED-count unrolled chain (10
     updates from a series starter, machine-precision for e <= 0.95) vs
     the reference's unbounded tolerance loop (model_two_body.hpp:131-160)
-    — a while_loop costs 0.1-0.2 ms of dispatch+sync per pass here.
+    — a while_loop pays a kernel dispatch and a predicate check per pass.
   - compute_orbital_elements cannot throw on unbound orbits
     (model_two_body.hpp:294-402 throws); an unbound state yields NaN in
     the recorded perturbation diagnostics instead.
@@ -58,11 +58,10 @@ KEPLER_ITERS = 10
 def _solve_kepler(ecc, M_anom):
     """E - e sin E = M by Newton (model_two_body.hpp:131-160).
 
-    FIXED-count unrolled Newton instead of a tolerance while_loop: on
-    this runtime every scalar lax.while_loop pass costs 0.1-0.2 ms of
-    kernel dispatch + loop sync (round-2 finding), and the fast flagship
-    step runs this solve 2-3 times per step — the unrolled chain fuses
-    into one scalar kernel with no sync. The series starter
+    FIXED-count unrolled Newton instead of a tolerance while_loop: every
+    scalar lax.while_loop pass costs a kernel dispatch plus a loop
+    predicate check, and the fast flagship step runs this solve 2-3
+    times per step — the unrolled chain fuses into one scalar kernel. The series starter
     x0 = M + e sin M + (e^2/2) sin 2M puts Newton in its quadratic
     basin for e <~ 0.95, so 10 updates land at machine precision —
     within the reference loop's 1e-10 stopping tolerance of its answer

@@ -2,7 +2,7 @@
 core_thread_pool.hpp).
 
 The reference's parallelism is domain decomposition over MPI ranks plus a
-shared-memory thread pool. TPU-native mapping (SURVEY.md §2.2):
+shared-memory thread pool. JAX mapping (SURVEY.md §2.2):
 
 - thread pool / evaluate_on<N>  -> XLA intra-chip parallelism (nothing to do)
 - MPI Session                   -> jax.distributed.initialize (comm.Session)

@@ -8,7 +8,7 @@ crosses shards —
     exchange with on-the-fly prolong/restrict), and
   - the boundary flux strips (for the coarse-fine flux correction),
 
-both via `jax.lax.all_gather` over the mesh axis (the ICI-resident analog
+both via `jax.lax.all_gather` over the mesh axis (the collective analog
 of the reference's per-rank guard messages, core_mpi.hpp:533-637, chosen
 over pairwise ppermute because an AMR neighbor table addresses arbitrary
 shards). Accounting totals reduce with psum; the fault flag with a global
@@ -78,7 +78,6 @@ def make_advance_block_sharded(cfg: SchemeConfig, nt, geometry,
     n = mesh.shape[axis_name]
     assert B % n == 0, (B, n)
     Bl = B // n
-    consts = block_layout.build_soa_guard(nt, bs)
     case = jnp.asarray(nt.case)
     same_id = jnp.asarray(nt.same_id)
     coarse_id = jnp.asarray(nt.coarse_id)
@@ -105,8 +104,7 @@ def make_advance_block_sharded(cfg: SchemeConfig, nt, geometry,
         def extend(a, axis):
             e = jax.lax.all_gather(_edges(a, axis), axis_name, axis=0,
                                    tiled=True)
-            lo, hi = block_layout.guard_strips_from_edges(e, ntl, consts,
-                                                          axis)
+            lo, hi = block_layout.guard_strips_from_edges(e, ntl, axis)
             return _extend_from_strips(a, lo, hi, axis)
 
         p0_ex = extend(p0, 0)

@@ -1,8 +1,8 @@
 """In-graph collectives: the data-plane of the reference's MPI communicator.
 
-Re-design of mpi::Communicator (src/core_mpi.hpp:353-833). On TPU these are
-not host calls but operations compiled into programs and executed over
-ICI/DCN, so the API is a set of functions usable *inside* ``shard_map``
+Re-design of mpi::Communicator (src/core_mpi.hpp:353-833). Here these are
+not host calls but operations compiled into programs and executed
+between devices, so the API is a set of functions usable *inside* ``shard_map``
 (each takes the mesh axis name). The correspondence:
 
   MPI (reference)             here

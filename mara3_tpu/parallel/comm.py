@@ -4,7 +4,7 @@ Re-design of the reference's mpi:: session surface (src/core_mpi.hpp:47-98):
 `Session` maps to jax.distributed initialization; rank/size map to
 jax.process_index/process_count; printf_master/cout_master gate output to
 process 0. The *data-plane* communicator API (send/recv/bcast/all_gather/
-all_to_all, core_mpi.hpp:353-833) has no TPU analog as host calls — on TPU
+all_to_all, core_mpi.hpp:353-833) has no analog as host calls here —
 collectives are compiled into programs; see parallel/collectives.py for the
 in-graph equivalents and parallel/halo.py for the isend/irecv halo pattern.
 """

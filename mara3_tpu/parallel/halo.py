@@ -1,10 +1,10 @@
 """Guard-zone (halo) exchange over a sharded grid axis.
 
-The TPU-native replacement for the reference's isend/irecv neighbor exchange
+The JAX replacement for the reference's isend/irecv neighbor exchange
 (the `extend` guard-zone pattern, subprog_binary_scheme.cpp:132-142, and the
 MPI point-to-point API it would ride on, core_mpi.hpp:533-637): inside
 ``shard_map`` each shard sends its edge strips to its neighbors with
-``lax.ppermute`` — a pure ICI transfer XLA can overlap with compute — and
+``lax.ppermute`` — a device-to-device transfer XLA can overlap with compute — and
 fills physical-boundary guards by mask.
 
 All functions here are meant to be called *inside* ``shard_map`` with the
@@ -85,7 +85,8 @@ def make_sharded_step_2d(step_local, mesh, axis_names=("x", "y"),
     guard cells on both grid axes (axes 0 and 1; components trailing) and
     return the updated interior shard. Returns a function over the global
     (sharded) array that performs halo exchange + local update under
-    shard_map — the whole thing jit-compiles to compute with ICI transfers.
+    shard_map — the whole thing jit-compiles to compute with device-to-device
+    transfers.
     """
     ax_x, ax_y = axis_names
     nx = mesh.shape[ax_x]

@@ -1,97 +1,64 @@
-"""The fastest uniform-grid kernel (v4 stripes) under shard_map.
+"""The uniform-grid step under shard_map, x-sharded over a device mesh.
 
-Closes the gap between the fastest kernel family and the distribution
-layer: the big x axis is sharded over a device mesh axis, each device runs
-the SAME v4 stripe Pallas kernel on its local rows, and the only
-communication is a pair of 2G-row edge strips ppermute'd to the x
-neighbors once per G-step launch — the ICI analog of the reference's
-isend/irecv guard exchange driving its distributed uniform-grid scheme
-(subprog_binary_scheme.cpp:132-142; MPI plane core_mpi.hpp:533-637).
+The big x axis is sharded over a 1-D ("x",) mesh axis; each device runs the
+jnp PLM step (schemes/iso2d_grid.step_local_extended) on its rows after a
+width-2 ppermute halo exchange with its x neighbors (parallel/halo.py) —
+the collective analog of the reference's isend/irecv guard exchange
+driving its distributed uniform-grid scheme
+(subprog_binary_scheme.cpp:132-142; MPI plane core_mpi.hpp:533-637). The
+y axis stays whole on each device and wraps locally. SSP-RK2 exchanges
+halos before each of its two stages.
 
-Temporal blocking composes with the decomposition for free: a 2G-wide
-halo feeds G fused steps, so the per-step communication volume is the
-same as a width-2 exchange every step, but there are G x fewer messages
-and G x fewer launches.
-
-Bit parity: each stripe's update depends only on its extended window, and
-the windows the sharded path assembles are (by construction) the same
-rows the single-device `build_x_strips` gathers, so the distributed
-result is BIT-IDENTICAL to single-device `advance_n_pallas_v4` with the
-same TX/G — asserted on the 8-virtual-device CPU mesh in
-tests/test_iso2d_sharded.py and exercised by __graft_entry__'s
-dryrun_multichip.
+Each shard's update reads only its extended window, which holds the same
+cells the single-device periodic step reads, so the distributed result
+matches the single-device kh advance (tests/test_iso2d_sharded.py on
+virtual CPU devices).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
-import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, NamedSharding
 from jax.sharding import PartitionSpec as P
 
-from mara3_tpu.kernels.iso2d_step_v4 import pallas_step_v4_strips
+from mara3_tpu.parallel.halo import halo_exchange
+from mara3_tpu.schemes import iso2d_grid
 
 
-def _local_strips(u, h: int, TX: int, axis_name: str, num_shards: int):
-    """x-halo strips for this shard's stripes: interior stripes read their
-    neighbor stripes locally; the shard-edge stripes get their rows from
-    the x-neighbor shards via ppermute (periodic)."""
-    _, nxl, ny = u.shape
-    gi = nxl // TX
-    ub = u.reshape(3, gi, TX, ny)
-    # local periodic guess (wrong only at the shard edges, fixed below)
-    lo = jnp.roll(ub[:, :, TX - h:], 1, axis=1)
-    hi = jnp.roll(ub[:, :, :h], -1, axis=1)
-    if num_shards > 1:
-        send_right = [(i, (i + 1) % num_shards) for i in range(num_shards)]
-        send_left = [(i, (i - 1) % num_shards) for i in range(num_shards)]
-        from_left = lax.ppermute(u[:, nxl - h:], axis_name, send_right)
-        from_right = lax.ppermute(u[:, :h], axis_name, send_left)
-        lo = lo.at[:, 0].set(from_left)
-        hi = hi.at[:, gi - 1].set(from_right)
-    return lo.transpose(1, 0, 2, 3), hi.transpose(1, 0, 2, 3)
-
-
-def make_advance_v4_sharded(mesh: Mesh, *, axis_name: str = "x",
-                            G: int = 8, cs2: float, dtdx: float,
-                            dtdy: float, theta: float = 1.8,
-                            TX: int = 512, rk_order: int = 1,
-                            riemann: str = "hlle",
-                            interpret: bool = False):
-    """Distributed n-step advance over a global periodic [3, nx, ny]
-    state x-sharded over ``mesh[axis_name]``.
-
-    Returns ``advance(u, n)`` (jitted; n static, a multiple of G) where
-    u carries NamedSharding P(None, axis_name, None). Per G steps each
-    device runs ONE v4 stripe launch; the halo traffic is 2 x 2G rows.
-    """
+def make_advance_sharded(mesh: Mesh, *, axis_name: str = "x", cs2: float,
+                         dx: float, dy: float, dt: float,
+                         theta: float = 1.8, rk_order: int = 1,
+                         riemann: str = "hlle"):
+    """Distributed n-step advance over a global periodic [nx, ny, 3]
+    state x-sharded over ``mesh[axis_name]``. Returns ``advance(u, n)``
+    (jitted) where u carries NamedSharding P(axis_name, None, None)."""
     num_shards = mesh.shape[axis_name]
 
-    def local_chunk(u):
-        lo, hi = _local_strips(u, 2 * G * rk_order, TX, axis_name,
-                               num_shards)
-        return pallas_step_v4_strips(u, lo, hi, G=G, cs2=cs2, dtdx=dtdx,
-                                     dtdy=dtdy, theta=theta, TX=TX,
-                                     rk_order=rk_order, riemann=riemann,
-                                     interpret=interpret)
+    def euler(u):
+        u_ext = halo_exchange(u, axis=0, axis_name=axis_name,
+                              num_shards=num_shards, width=iso2d_grid.GUARD)
+        u_ext = halo_exchange(u_ext, axis=1, axis_name=axis_name,
+                              num_shards=1, width=iso2d_grid.GUARD)
+        return iso2d_grid.step_local_extended(u_ext, cs2, dx, dy, dt, theta,
+                                              riemann)
 
-    spec = P(None, axis_name, None)
-    # check_vma=False: pallas_call's out_shape carries no varying-mesh-axes
-    # annotation, so shard_map's vma checker cannot see through it
-    chunk = jax.shard_map(local_chunk, mesh=mesh, in_specs=spec,
-                          out_specs=spec, check_vma=False)
+    def local_step(u):
+        if rk_order == 1:
+            return euler(u)
+        return 0.5 * (u + euler(euler(u)))
 
-    @functools.partial(jax.jit, static_argnames=("n",))
-    def advance(u, n: int):
-        assert n % G == 0, (n, G)
-        return lax.fori_loop(0, n // G, lambda _, v: chunk(v), u)
+    spec = P(axis_name, None, None)
+    step = jax.shard_map(local_step, mesh=mesh, in_specs=spec,
+                         out_specs=spec)
+
+    @jax.jit
+    def advance(u, n):
+        return lax.fori_loop(0, n, lambda _, v: step(v), u)
 
     return advance
 
 
 def shard_state(u, mesh: Mesh, axis_name: str = "x"):
-    """Place a global [3, nx, ny] state with x sharded over the mesh."""
-    return jax.device_put(u, NamedSharding(mesh, P(None, axis_name, None)))
+    """Place a global [nx, ny, 3] state with x sharded over the mesh."""
+    return jax.device_put(u, NamedSharding(mesh, P(axis_name, None, None)))

@@ -1,10 +1,10 @@
 """Device-mesh construction and sharding helpers.
 
-The TPU-native replacement for the reference's rank grid: a
+The JAX replacement for the reference's rank grid: a
 jax.sharding.Mesh whose axis sizes come from the same near-cubic prime-factor
 decomposition the reference uses for MPI ranks (app_parallel.hpp:119-131),
-so the domain-decomposition geometry is identical — but collectives ride ICI
-instead of MPI.
+so the domain-decomposition geometry is identical — but collectives run
+between devices instead of over MPI.
 """
 
 from __future__ import annotations

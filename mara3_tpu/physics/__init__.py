@@ -1,7 +1,7 @@
 """Hyperbolic systems (maps reference layer 6, src/physics_*.hpp).
 
 Each system is a module of pure, jit-traceable functions over arrays whose
-*trailing axis* is the component axis (the TPU-native analog of the
+*trailing axis* is the component axis (the JAX analog of the
 reference's arithmetic_sequence_t state vectors). All functions broadcast
 over arbitrary leading shapes, so the same code path serves a single cell in
 a unit test and a [num_blocks, bs, bs] AMR grid in the flagship run.

@@ -6,7 +6,7 @@ conserved density U = [D, S1, S2, S3, tau].
 
 The reference's primitive recovery is a per-cell Newton iteration on the
 pressure, <=50 steps to |f| < 1e-10 (physics_srhd.hpp:364-440), with thrown
-exceptions on failure. TPU-native form: one vectorized masked
+exceptions on failure. JAX form: one vectorized masked
 ``lax.while_loop`` — every cell iterates together, converged cells freeze,
 the loop exits when all cells converge (or at 50, matching the bound). The
 failure conditions surface as a value-level fault mask (`recovery_failed`)
@@ -223,8 +223,8 @@ def recover_primitive(U, gamma_law_index, temperature_floor=0.0,
 
     # CHUNK updates per while iteration: per-cell results are identical
     # (frozen cells are untouched), but the all-cells-converged check and
-    # its loop-carried sync happen 5x less often — on TPU each while pass
-    # is a full-mesh kernel dispatch, which dominated the cloud step
+    # its loop-carried sync happen 5x less often — each while pass is a
+    # full-mesh kernel dispatch plus a predicate check
     CHUNK = 5
     assert NEWTON_ITER_MAX % CHUNK == 0
 
@@ -296,9 +296,9 @@ def primitive_from_quantities(mass_density, gamma_beta_1, gamma_beta_2,
 # -----------------------------------------------------------------------------
 # SoA (tuple-of-components) forms of the same physics. Identical formulas
 # and evaluation order per cell; states are 5-tuples of component arrays.
-# On TPU the tuple form removes every stack/concatenate from the hot DAG,
-# so XLA fuses whole flux chains instead of materializing [..., 5]
-# intermediates (measured 2x+ on the cloud advance). Used by the cloud
+# The tuple form removes every stack/concatenate from the hot DAG, so XLA
+# fuses whole flux chains instead of materializing [..., 5]
+# intermediates. Used by the cloud
 # subprogram's advance; the stacked API above remains the public surface.
 # -----------------------------------------------------------------------------
 

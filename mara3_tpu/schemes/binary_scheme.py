@@ -19,12 +19,9 @@ density, the reference's thrown exception at subprog_binary_scheme.cpp:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import partial
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from mara3_tpu.mathx.plm import plm_gradient
 from mara3_tpu.mesh import block_layout
@@ -353,17 +350,12 @@ def _work_done(totals, bodies):
 
 
 def make_advance(cfg: SchemeConfig, nt: block_layout.NeighborTable,
-                 geometry, initial_conserved, buffer_rate, fused=None):
+                 geometry, initial_conserved, buffer_rate):
     """Build the jit-compiled advance. `geometry` is (xc [B,bs,bs,2],
     dA [B,bs,bs], spacing [B], xf [B,bs+1,bs,2], yf [B,bs,bs+1,2]).
-    Returns advance(u, bodies, dt, plm_theta) -> (u1, totals, invalid).
-
-    fused=True (the default on TPU): everything after the guard exchange +
-    PLM runs as ONE pallas launch over block chunks
-    (kernels/binary_advance.py), with coarse-fine flux correction applied
-    as a cheap jnp edge fixup from the kernel's edge-flux outputs.
-    fused="split": the round-1 two-kernel split (kernels/binary_update.py).
-    fused=False: the pure-jnp reference-semantics path (the CPU path)."""
+    Returns advance(u, bodies, dt, plm_theta) -> (u1, totals, invalid);
+    ``advance.traced`` is the un-jitted body for callers that compose it
+    into a larger program (schemes/binary_step.py)."""
     xc, dA, spacing, xf, yf = (jnp.asarray(a) for a in geometry)
     initial_conserved = jnp.asarray(initial_conserved)
     buffer_rate = jnp.asarray(buffer_rate)
@@ -372,29 +364,8 @@ def make_advance(cfg: SchemeConfig, nt: block_layout.NeighborTable,
     face_len_x = jnp.broadcast_to(spacing[:, None, None], xf.shape[:-1])
     face_len_y = jnp.broadcast_to(spacing[:, None, None], yf.shape[:-1])
     # one-gather guard exchange tables (the masked-select path costs ~20
-    # XLA ops per extend; the flagship advance is launch-bound)
+    # XLA ops per extend)
     gg = block_layout.build_guard_gather(nt, cfg.block_size)
-
-    if fused is None:
-        # single-launch kernel on TPU; jnp graph elsewhere (tests/parity)
-        fused = jax.default_backend() == "tpu"
-    if fused is True:
-        return _make_advance_chunked(cfg, nt, geometry, initial_conserved,
-                                     buffer_rate, gg)
-    if fused == "jnp_strips":
-        # round-2 variant: edge gradients + case-gathers in the jnp front
-        return _make_advance_chunked(cfg, nt, geometry, initial_conserved,
-                                     buffer_rate, gg, in_kernel_guards=False)
-    if fused == "split" and cfg.riemann != "hlle":
-        raise NotImplementedError(
-            "the round-1 split kernels support hlle only; use the "
-            "chunked kernel (fused=True) or the jnp path for hllc")
-    cfg_tuple = (cfg.softening_radius, cfg.sink_radius, cfg.sink_rate,
-                 cfg.mach_number, cfg.axisymmetric_cs2, cfg.conserve_linear_p,
-                 cfg.density_floor, cfg.gst_suppr_radius ** 2)
-    cfg_flux = (cfg.softening_radius, cfg.mach_number, cfg.axisymmetric_cs2,
-                cfg.conserve_linear_p, cfg.alpha, cfg.alpha_cutoff_radius,
-                cfg.nu, cfg.domain_radius, cfg.riemann)
 
     def advance_impl(u0, bodies, dt, plm_theta):
         # plm_theta may be a traced scalar (the in-graph safe-mode retry
@@ -425,33 +396,16 @@ def make_advance(cfg: SchemeConfig, nt: block_layout.NeighborTable,
         gx_ex, gy_ex = G_ex[..., :nc], G_ex[..., nc:]
         gx_ey, gy_ey = G_ey[..., :nc], G_ey[..., nc:]
 
-        if fused:
-            from mara3_tpu.kernels import binary_update
-            fx = binary_update.fused_fluxes(p0_ex, gx_ex, gy_ex, xf,
-                                            spacing, bodies, 0,
-                                            cfg_flux[:8])
-            fy = binary_update.fused_fluxes(p0_ey, gy_ey, gx_ey, yf,
-                                            spacing, bodies, 1,
-                                            cfg_flux[:8])
-        else:
-            fx = block_fluxes(0, p0_ex, gx_ex, gy_ex, xf, face_len_x,
-                              spacing, bodies, cfg)
-            fy = block_fluxes(1, p0_ey, gy_ey, gx_ey, yf, face_len_y,
-                              spacing, bodies, cfg)
-            if not cfg.conserve_linear_p:
-                fx = to_angmom_fluxes(0, fx, xf, cfg.domain_radius)
-                fy = to_angmom_fluxes(1, fy, yf, cfg.domain_radius)
+        fx = block_fluxes(0, p0_ex, gx_ex, gy_ex, xf, face_len_x,
+                          spacing, bodies, cfg)
+        fy = block_fluxes(1, p0_ey, gy_ey, gx_ey, yf, face_len_y,
+                          spacing, bodies, cfg)
+        if not cfg.conserve_linear_p:
+            fx = to_angmom_fluxes(0, fx, xf, cfg.domain_radius)
+            fy = to_angmom_fluxes(1, fy, yf, cfg.domain_radius)
 
         fx = correct_coarse_fine_fluxes(fx, nt, axis=0)
         fy = correct_coarse_fine_fluxes(fy, nt, axis=1)
-
-        if fused:
-            from mara3_tpu.kernels import binary_update
-            u1, totals, invalid = binary_update.fused_update(
-                u0, p0, fx, fy, xc, buffer_rate, initial_conserved, dA,
-                dt, bodies, cfg_tuple)
-            totals["work_done_on"] = _work_done(totals, bodies)
-            return u1, totals, invalid
 
         s, totals = source_terms(u0, p0, xc, dA, buffer_rate,
                                  initial_conserved, bodies, dt, cfg)
@@ -470,340 +424,6 @@ def make_advance(cfg: SchemeConfig, nt: block_layout.NeighborTable,
         return jitted(u0, bodies, dt, plm_theta)
 
     advance.traced = advance_impl
-    return advance
-
-
-def _make_advance_chunked(cfg: SchemeConfig, nt: block_layout.NeighborTable,
-                          geometry, initial_conserved, buffer_rate, gg,
-                          interpret=False, in_kernel_guards=True):
-    """Single-launch advance: jnp front half (primitive recovery, one-gather
-    guard exchange) feeding kernels/binary_advance.fused_advance_core2,
-    plus the jnp coarse-fine edge fixup. Matches the fused=False path to
-    rounding (tests/test_pallas_kernel.py).
-
-    in_kernel_guards=True (default, round 3): the gradient guard strips
-    are built inside the kernel from compact edge tensors + neighbor
-    tables (the 16 edge-slope jnp calls + case-gathers measured ~0.5 ms
-    of the 1.38 ms step at d6b96). False keeps the round-2 jnp
-    edge-gradient front (fused_advance_core)."""
-    from mara3_tpu.kernels import binary_advance
-
-    xc, dA, spacing, xf, yf = (np.asarray(a) for a in geometry)
-    B, bs = xc.shape[0], cfg.block_size
-    K, Bp = binary_advance.pick_chunk(B, bs)
-    pad = Bp - B
-
-    dtype = jnp.asarray(initial_conserved).dtype
-    T = lambda a: jnp.transpose(jnp.asarray(a, dtype), (0, 3, 1, 2))
-
-    def padT(a):
-        at = T(a)
-        if pad:
-            at = jnp.pad(at, [(0, pad)] + [(0, 0)] * (at.ndim - 1))
-        return at
-
-    # static per-run arrays, component-first + padded once
-    initT = padT(np.asarray(initial_conserved))
-    # per-block geometry scalars: cell (0,0) lower corner + spacing (the
-    # kernel rebuilds positions from iota); padded blocks sit far outside
-    # the domain so their (masked) sources stay harmless
-    x00 = xc[:, 0, 0, 0] - 0.5 * spacing
-    y00 = xc[:, 0, 0, 1] - 0.5 * spacing
-    geo = np.stack([x00, y00, spacing], axis=-1).reshape(B, 1, 3)
-    geo = np.pad(geo, [(0, pad), (0, 0), (0, 0)],
-                 constant_values=1.0) if pad else geo
-    geoP = jnp.asarray(geo, dtype)
-    spP = jnp.asarray(
-        np.pad(spacing, (0, pad), constant_values=1.0), dtype).reshape(Bp, 1, 1)
-    bmask = jnp.asarray(
-        np.pad(np.ones(B), (0, pad)), dtype).reshape(Bp, 1, 1)
-    xc_j = jnp.asarray(xc, dtype)
-    xcT_j = jnp.transpose(xc_j, (0, 3, 1, 2))
-    sp_j = jnp.asarray(spacing, dtype)
-    soa_consts = block_layout.build_soa_guard(nt, bs)
-
-    cfg_tuple = (cfg.softening_radius, cfg.sink_radius, cfg.sink_rate,
-                 cfg.mach_number, cfg.axisymmetric_cs2, cfg.conserve_linear_p,
-                 cfg.density_floor, cfg.gst_suppr_radius ** 2)
-    cfg_flux = (cfg.softening_radius, cfg.mach_number, cfg.axisymmetric_cs2,
-                cfg.conserve_linear_p, cfg.alpha, cfg.alpha_cutoff_radius,
-                cfg.nu, cfg.domain_radius, cfg.riemann)
-    buffer_cfg = (cfg.buffer_damping_rate, cfg.domain_radius)
-
-    fine0 = {f: jnp.asarray(nt.fine_id[:, f, 0]) for f in range(4)}
-    fine1 = {f: jnp.asarray(nt.fine_id[:, f, 1]) for f in range(4)}
-    fmask = {f: jnp.asarray(nt.case[:, f] == 2, dtype)[:, None, None]
-             for f in range(4)}
-
-    if in_kernel_guards:
-        # padded-native hot path (round 3): every table is built from a
-        # SELF-NEIGHBORING padded table so all strip/edge/corner tensors
-        # come out [Bp]-sized with no jnp.pad on the step's critical path
-        # (10 per-step pads measured as part of the ~0.46 ms jnp front).
-        # The pad blocks carry benign sigma=1 v=0 data refreshed each call.
-        nt_p = block_layout.pad_neighbor_table(nt, pad)
-        tab, sp_all, Mh2, Pf2 = binary_advance.build_kernel2_tables(
-            nt_p, np.pad(spacing, (0, pad), constant_values=1.0), bs,
-            dtype)
-        k2_tables = (tab, sp_all, Mh2, Pf2)
-        guard_tables = block_layout.GuardAllTables(nt_p, bs)
-        fine0P = {f: jnp.asarray(nt_p.fine_id[:, f, 0]) for f in range(4)}
-        fine1P = {f: jnp.asarray(nt_p.fine_id[:, f, 1]) for f in range(4)}
-        fmaskP = {f: jnp.asarray(nt_p.case[:, f] == 2, dtype)[:, None,
-                                                              None]
-                  for f in range(4)}
-        benign_u = jnp.asarray(
-            np.broadcast_to(np.array([1.0, 0.0, 0.0])[None, :, None,
-                                                      None],
-                            (pad, 3, bs, bs)).copy(), dtype)
-        benign_p = benign_u
-        sp_jP = jnp.asarray(np.pad(spacing, (0, pad),
-                                   constant_values=1.0), dtype)
-
-    def recover_soa(uT):
-        """Component-first primitive recovery [B, C, bs, bs]; exposed so
-        the fast step can compute it ONCE and share it between the CFL
-        reduce and the advance (identical values either way)."""
-        uT = uT.astype(dtype)
-        if cfg.conserve_linear_p:
-            sig = uT[:, :1]
-            return jnp.concatenate([sig, uT[:, 1:] / sig], axis=1)
-        sig = uT[:, :1]
-        sr = uT[:, 1] / uT[:, 0]
-        lz = uT[:, 2] / uT[:, 0]
-        x0, x1 = xcT_j[:, 0], xcT_j[:, 1]
-        r2 = x0 * x0 + x1 * x1
-        return jnp.concatenate(
-            [sig, ((sr * x0 - lz * x1) / r2)[:, None],
-             ((sr * x1 + lz * x0) / r2)[:, None]], axis=1)
-
-    def advance_soa(uT, bodies, dt, plm_theta, pT=None):
-        """Component-first advance [B, C, bs, bs] -> [B, C, bs, bs]: the
-        whole hot path stays SoA so no minor-axis relayout transposes sit
-        at the kernel boundary (measured ~1 ms each at flagship sizes).
-        pT optionally supplies the already-recovered primitives."""
-        uT = uT.astype(dtype)
-        if pT is None:
-            pT = recover_soa(uT)
-
-        if in_kernel_guards:
-            # normalize to [Bp] with ONE concat of the benign pad state
-            # (replaces ten per-step jnp.pads); every table below is
-            # [Bp]-strided so the whole pipeline stays padded-native
-            if pad and uT.shape[0] == B:
-                uT = jnp.concatenate([uT, benign_u])
-                pT = jnp.concatenate([pT, benign_p])
-            # one batched gather/einsum pass for all four strips
-            # (bit-matches the per-axis calls; tested in test_mesh)
-            pxlo, pxhi, pylo, pyhi = block_layout.guard_strips_all(
-                pT, soa_consts, guard_tables)
-        else:
-            pxlo, pxhi = block_layout.guard_strips_soa(pT, nt,
-                                                       soa_consts, 0)
-            pylo, pyhi = block_layout.guard_strips_soa(pT, nt,
-                                                       soa_consts, 1)
-
-        # Gradients live INSIDE the kernel (kernels/binary_advance.py); the
-        # front half computes them only on the edge rows/columns that the
-        # guard exchange gathers from — so no full-size gradient array ever
-        # touches HBM. theta=0 (or pcm) zeroes the limited slopes.
-        theta_eff = (plm_theta if cfg.reconstruct_method == "plm"
-                     else jnp.zeros_like(jnp.asarray(plm_theta)))
-        sp3 = sp_j[:, None, None]
-        padB = lambda a: (jnp.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1))
-                          if pad else a)
-
-        if in_kernel_guards:
-            # compact edge tensors feed the in-kernel strip builder; the
-            # neighbors' edge slopes never exist as jnp arrays. Single
-            # fancy-index gathers, not per-row stacks: each jnp op costs
-            # ~5-6 us on this runtime and the packing sits on the step's
-            # critical path. Everything is already [Bp]-sized here.
-            rows6 = jnp.asarray((0, 1, 2, bs - 3, bs - 2, bs - 1))
-            Ex = pT[:, :, rows6]                       # [Bp, C, 6, bs]
-            Ey = jnp.swapaxes(pT[:, :, :, rows6], 2, 3)
-            rows4 = jnp.asarray((0, 1, bs - 2, bs - 1))
-            cqx = jnp.stack([pylo[:, :, rows4], pyhi[:, :, rows4]],
-                            axis=-1)                   # [Bp, C, 4, 2]
-            cqy = jnp.stack([pxlo[:, :, rows4], pxhi[:, :, rows4]],
-                            axis=-1)
-            u1T, fxlo, fxhi, fylo, fyhi, totals16 = \
-                binary_advance.fused_advance_core2(
-                    uT, pT, (pxlo, pxhi, pylo, pyhi),
-                    (Ex, Ey), (cqx, cqy),
-                    k2_tables, geoP, initT, spP, bmask, dt, bodies,
-                    theta_eff, K, cfg_tuple, cfg_flux, buffer_cfg,
-                    interpret=interpret)
-            return _finish_advance_padded(u1T, fxlo, fxhi, fylo, fyhi,
-                                          totals16, dt=dt, bodies=bodies)
-
-        # NOTE (round 3): batching these 16 small plm_gradient calls into 4
-        # stacked [B, C, 4, bs] calls was measured 60% SLOWER end-to-end
-        # (2.1 vs 1.3 ms/advance) — XLA lowers the slice-stacks worse than
-        # the unrolled per-row fusions. Keep the per-row form.
-        def gx_at_rows(rows):
-            """x-slopes at the given rows, [B, C, len(rows), bs]."""
-            outs = []
-            for r in rows:
-                yl = pxlo if r == 0 else pT[:, :, r - 1]
-                yr = pxhi if r == bs - 1 else pT[:, :, r + 1]
-                outs.append(plm_gradient(yl, pT[:, :, r], yr, theta_eff)
-                            / sp3)
-            return jnp.stack(outs, axis=2)
-
-        def gy_at_rows(rows):
-            """y-slopes at the given rows (needs the y-guards there)."""
-            outs = []
-            for r in rows:
-                row = pT[:, :, r]                       # [B, C, bs]
-                ext = jnp.concatenate([pylo[:, :, r:r + 1], row,
-                                       pyhi[:, :, r:r + 1]], axis=2)
-                outs.append(plm_gradient(ext[:, :, :-2], ext[:, :, 1:-1],
-                                         ext[:, :, 2:], theta_eff) / sp3)
-            return jnp.stack(outs, axis=2)
-
-        def gy_at_cols(cols):
-            outs = []
-            for c in cols:
-                yl = pylo if c == 0 else pT[:, :, :, c - 1]
-                yr = pyhi if c == bs - 1 else pT[:, :, :, c + 1]
-                outs.append(plm_gradient(yl, pT[:, :, :, c], yr, theta_eff)
-                            / sp3)
-            return jnp.stack(outs, axis=2)
-
-        def gx_at_cols(cols):
-            outs = []
-            for c in cols:
-                col = pT[:, :, :, c]                    # [B, C, bs]
-                ext = jnp.concatenate([pxlo[:, :, c:c + 1], col,
-                                       pxhi[:, :, c:c + 1]], axis=2)
-                outs.append(plm_gradient(ext[:, :, :-2], ext[:, :, 1:-1],
-                                         ext[:, :, 2:], theta_eff) / sp3)
-            return jnp.stack(outs, axis=2)
-
-        edge = (0, 1, bs - 2, bs - 1)
-        E_G_x = jnp.concatenate([gx_at_rows(edge), gy_at_rows(edge)],
-                                axis=1)                 # [B, 2C, 4, bs]
-        E_G_y = jnp.concatenate([gx_at_cols(edge), gy_at_cols(edge)],
-                                axis=1)
-        Gxlo, Gxhi = block_layout.guard_strips_from_edges(
-            E_G_x, nt, soa_consts, 0)
-        Gylo, Gyhi = block_layout.guard_strips_from_edges(
-            E_G_y, nt, soa_consts, 1)
-
-        strips = padB(jnp.stack([
-            jnp.concatenate([pxlo, Gxlo], axis=1),
-            jnp.concatenate([pxhi, Gxhi], axis=1),
-            jnp.concatenate([pylo, Gylo], axis=1),
-            jnp.concatenate([pyhi, Gyhi], axis=1)], axis=1))
-        u1T, fxlo, fxhi, fylo, fyhi, totals16 = \
-            binary_advance.fused_advance_core(
-                padB(uT), padB(pT), strips, geoP,
-                initT, spP, bmask, dt, bodies, theta_eff, K,
-                cfg_tuple, cfg_flux, buffer_cfg, interpret=interpret)
-        return _finish_advance(u1T, fxlo, fxhi, fylo, fyhi, totals16,
-                               dt=dt, bodies=bodies)
-
-    def _finish_advance_padded(u1T, fxlo, fxhi, fylo, fyhi, totals16, *,
-                               dt, bodies):
-        """_finish_advance on [Bp] arrays with the padded fixup tables:
-        the pad rows carry fmask == 0 so the edge edits leave them
-        untouched, and the single [:B] trim at the end is the only
-        leading-axis copy on the whole padded-native path."""
-        dtdA = (dt / (sp_jP * sp_jP))[:, None, None]
-
-        def restricted(strips, ids0, ids1):
-            st = jnp.concatenate([strips[ids0], strips[ids1]], axis=-1)
-            return st[..., 0::2] + st[..., 1::2]
-
-        d = (restricted(fxhi, fine0P[0], fine1P[0]) - fxlo) * dtdA \
-            * fmaskP[0]
-        u1T = u1T.at[:, :, 0, :].add(d)
-        d = (restricted(fxlo, fine0P[1], fine1P[1]) - fxhi) * dtdA \
-            * fmaskP[1]
-        u1T = u1T.at[:, :, -1, :].add(-d)
-        d = (restricted(fyhi, fine0P[2], fine1P[2]) - fylo) * dtdA \
-            * fmaskP[2]
-        u1T = u1T.at[:, :, :, 0].add(d)
-        d = (restricted(fylo, fine0P[3], fine1P[3]) - fyhi) * dtdA \
-            * fmaskP[3]
-        u1T = u1T.at[:, :, :, -1].add(-d)
-
-        u1T = u1T[:B]
-        invalid = jnp.any(jnp.logical_or(u1T[:, 0] < 0.0,
-                                         jnp.isnan(u1T[:, 0])))
-
-        tt = totals16
-        totals = {
-            "mass_accreted_on": tt[0, :2],
-            "angular_momentum_accreted_on": tt[1, :2],
-            "integrated_torque_on": tt[2, :2],
-            "momentum_x_accreted_on": tt[3, :2],
-            "momentum_y_accreted_on": tt[4, :2],
-            "integrated_force_x_on": tt[5, :2],
-            "integrated_force_y_on": tt[6, :2],
-            "mass_ejected": tt[7, 0],
-            "angular_momentum_ejected": tt[8, 0],
-        }
-        totals["work_done_on"] = _work_done(totals, bodies)
-        return u1T, totals, invalid
-
-    def _finish_advance(u1T, fxlo, fxhi, fylo, fyhi, totals16, *, dt,
-                        bodies):
-        # coarse-fine flux correction as an edge fixup: add
-        # (restrict_extrinsic(fine fluxes) - own flux) * dt/dA at faces
-        # whose neighbor is finer (correct_fluxes_*, subprog_binary_scheme
-        # .cpp:614-720)
-        u1T = u1T[:B]
-        fxlo, fxhi = fxlo[:B], fxhi[:B]
-        fylo, fyhi = fylo[:B], fyhi[:B]
-        dtdA = (dt / (sp_j * sp_j))[:, None, None]
-
-        def restricted(strips, ids0, ids1):
-            st = jnp.concatenate([strips[ids0], strips[ids1]], axis=-1)
-            return st[..., 0::2] + st[..., 1::2]
-
-        d = (restricted(fxhi, fine0[0], fine1[0]) - fxlo) * dtdA * fmask[0]
-        u1T = u1T.at[:, :, 0, :].add(d)
-        d = (restricted(fxlo, fine0[1], fine1[1]) - fxhi) * dtdA * fmask[1]
-        u1T = u1T.at[:, :, -1, :].add(-d)
-        d = (restricted(fyhi, fine0[2], fine1[2]) - fylo) * dtdA * fmask[2]
-        u1T = u1T.at[:, :, :, 0].add(d)
-        d = (restricted(fylo, fine0[3], fine1[3]) - fyhi) * dtdA * fmask[3]
-        u1T = u1T.at[:, :, :, -1].add(-d)
-
-        invalid = jnp.any(jnp.logical_or(u1T[:, 0] < 0.0,
-                                         jnp.isnan(u1T[:, 0])))
-
-        tt = totals16
-        totals = {
-            "mass_accreted_on": tt[0, :2],
-            "angular_momentum_accreted_on": tt[1, :2],
-            "integrated_torque_on": tt[2, :2],
-            "momentum_x_accreted_on": tt[3, :2],
-            "momentum_y_accreted_on": tt[4, :2],
-            "integrated_force_x_on": tt[5, :2],
-            "integrated_force_y_on": tt[6, :2],
-            "mass_ejected": tt[7, 0],
-            "angular_momentum_ejected": tt[8, 0],
-        }
-        totals["work_done_on"] = _work_done(totals, bodies)
-        return u1T, totals, invalid
-
-    def advance_impl(u0, bodies, dt, plm_theta):
-        u1T, totals, invalid = advance_soa(
-            jnp.transpose(u0.astype(dtype), (0, 3, 1, 2)), bodies, dt,
-            plm_theta)
-        return jnp.transpose(u1T, (0, 2, 3, 1)), totals, invalid
-
-    jitted = jax.jit(advance_impl)
-
-    def advance(u0, bodies, dt, plm_theta):
-        return jitted(u0, bodies, dt, plm_theta)
-
-    advance.traced = advance_impl
-    advance.traced_soa = advance_soa
-    advance.recover_soa = recover_soa
     return advance
 
 

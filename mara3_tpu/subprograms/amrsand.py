@@ -7,7 +7,7 @@ with "level:i-j" keys. Exercises the full AMR mechanics — tree build, 2:1
 balance, guard exchange with on-the-fly prolong/restrict — without physics
 complexity.
 
-TPU-native: leaves live in one dense [B, bs, bs, 1] array in Hilbert order;
+Layout: leaves live in one dense [B, bs, bs, 1] array in Hilbert order;
 the per-step extend+flux+update is one jit program of masked gathers
 (mesh/block_layout.py) — the reference fans get_cell_block recursion over a
 thread pool instead (core_tree.hpp:615-639).
@@ -15,11 +15,9 @@ thread pool instead (core_tree.hpp:615-639).
 
 from __future__ import annotations
 
-import hashlib
 from dataclasses import dataclass, replace
 from functools import partial
 
-import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,7 +41,8 @@ def config_template():
             # static): rebuild the mesh from the solution gradient every
             # `rgi` time units when `regrid=1`
             .item("regrid", 0)
-            # chunked driver loop (-1 = auto on TPU, 0 = per-step, 1 = on)
+            # chunked driver loop (-1 = auto, on when the backend is not
+            # the CPU; 0 = per-step, 1 = on)
             .item("fast_step", -1)
             .item("rgi", 0.1)
             .item("refine_threshold", 0.3)
@@ -89,52 +88,17 @@ def _advance(u0, dxb, nt_arrays, dt: float):
     return u0 - (lx + ly) * dt / dxb[:, None, None, None]
 
 
-_GUARD_MATS_CACHE = {}
-LAST_PATH = "unset"   # executed-path attribution for benchmark artifacts
+@partial(jax.jit, static_argnames=("dt",))
+def _advance_loop(u0, dxb, nt_arrays, dt: float, num_steps):
+    return jax.lax.fori_loop(
+        0, num_steps, lambda _, u: _advance(u, dxb, nt_arrays, dt), u0)
 
 
-def advance_n(u0, dxb, nt, dt: float, num_steps: int, kernel=None):
-    """num_steps upwind steps. On TPU: ONE VMEM-resident Pallas launch
-    with the guard exchange as exact one-hot matmuls
-    (kernels/amrsand_step.py — the jnp path is dispatch-bound at ~0.39
-    ms/step for an ~11 MB state); elsewhere the jnp _advance loop."""
-    global LAST_PATH
-    auto = kernel is None
-    if auto:
-        kernel = jax.default_backend() == "tpu"
-    if kernel:
-        from mara3_tpu.kernels import amrsand_step
-        bs = u0.shape[1]
-        # Key on tree CONTENT (not id(nt): a freed table's id can be
-        # reused by a new tree with the same block count, silently
-        # serving stale guard matrices).
-        tree_digest = hashlib.sha1(b"".join(
-            np.ascontiguousarray(a).tobytes()
-            for a in (nt.case, nt.same_id, nt.coarse_id, nt.coarse_half,
-                      nt.fine_id))).hexdigest()
-        key = (tree_digest, bs, str(u0.dtype))
-        if key not in _GUARD_MATS_CACHE:
-            Bp = -(-u0.shape[0] // 8) * 8
-            _GUARD_MATS_CACHE.clear()      # one live tree at a time
-            _GUARD_MATS_CACHE[key] = amrsand_step.build_guard_mats(
-                nt, bs, Bp, np.dtype(u0.dtype).type)
-        try:
-            out = amrsand_step.advance_n_pallas(
-                u0, dxb, _GUARD_MATS_CACHE[key], float(dt), num_steps,
-                interpret=kernel == "interpret")
-            LAST_PATH = "pallas:amrsand_step"
-            return out
-        except Exception:
-            if not auto:
-                raise                     # explicit request: surface it
-            print("amrsand: fused kernel unavailable, using the jnp path")
-    LAST_PATH = "jnp"
+def advance_n(u0, dxb, nt, dt: float, num_steps: int):
+    """num_steps upwind steps as one dispatch (a jitted fori_loop)."""
     nt_arrays = (nt.case, nt.same_id, nt.coarse_id, nt.coarse_half,
                  nt.fine_id)
-    u = u0
-    for _ in range(num_steps):
-        u = _advance(u, dxb, nt_arrays, dt)
-    return u
+    return _advance_loop(u0, dxb, nt_arrays, dt, num_steps)
 
 
 def next_solution(state: Solution, nt, dxb) -> Solution:
@@ -151,6 +115,7 @@ def next_solution(state: Solution, nt, dxb) -> Solution:
 # -----------------------------------------------------------------------------
 
 def write_diagnostics(state: Solution, schedule, cfg):
+    import h5py
     count = schedule.num_times_performed("write_diagnostics")
     outdir = cfg.get_string("outdir")
     path = serialize.create_numbered_filename("diagnostics", count, "h5",
@@ -210,15 +175,10 @@ def main(argv) -> int:
 
     schedule = driver.create_schedule(cfg, ["write_diagnostics"])
 
-    fast = cfg.get_int("fast_step")
-    if fast < 0:
-        fast = int(jax.default_backend() == "tpu")
-
-    if fast:
+    if driver.use_fast_driver(cfg):
         # chunked driver (cloud/sedov _main_fast rationale): dt is static
-        # per layout, so each dispatch is ONE advance_n call (a single
-        # fused launch on TPU) planned to land exactly on the next
-        # diagnostics due or regrid event
+        # per layout, so each dispatch is ONE advance_n call planned to
+        # land exactly on the next diagnostics due or regrid event
         import math as _math
         import time as _time
         eps = 1e-12

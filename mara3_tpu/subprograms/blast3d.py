@@ -20,7 +20,6 @@ import math
 import time
 from dataclasses import dataclass, replace
 
-import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -76,6 +75,7 @@ def new_solution(cfg, mesh) -> Solution:
 
 
 def write_diagnostics(state, mesh, schedule, cfg):
+    import h5py
     count = schedule.num_times_performed("write_diagnostics")
     path = serialize.create_numbered_filename(
         "diagnostics", count, "h5", cfg.get_string("outdir"))

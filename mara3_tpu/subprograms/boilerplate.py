@@ -5,7 +5,7 @@ unit speed with an upwind flux, fixed dt = 0.25/N, checkpoints every `cpi`
 time units, full restart support. This is the smallest end-to-end exercise
 of the config/schedule/serialize/driver stack.
 
-TPU-native: the update is a jit-compiled pure function of (u, dx, dt); the
+Design: the update is a jit-compiled pure function of (u, dx, dt); the
 reference's lazy pipeline (subprog_boilerplate.cpp:121-136) traces into one
 fused XLA kernel. The reference prints its MPI process count at startup
 (subprog_boilerplate.cpp:268-276); here that is the jax distributed process
@@ -17,7 +17,6 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from functools import partial
 
-import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -76,6 +75,7 @@ def write_solution(group, s: SolutionState):
 
 
 def create_solution(cfg) -> SolutionState:
+    import h5py
     restart = cfg.get_string("restart")
     if restart:
         with h5py.File(restart, "r") as f:

@@ -8,7 +8,7 @@ boundary fluxes are zero (axis); PCM or PLM reconstruction with zero edge
 slopes; RK1 or Shu-Osher-style RK2 averaging; full spherical source terms;
 CGS unit system banner (print_run_dimensions, :856-905).
 
-TPU-native: one jit-compiled advance over the whole [Nr, Nq, 5] conserved
+One jit-compiled advance over the whole [Nr, Nq, 5] conserved
 array (the reference fans the lazy pipeline over a thread pool,
 subprog_cloud.cpp:525; XLA fuses and parallelizes instead). The per-theta
 shock diagnostics (:328-420) vmap the masked-scan locators over polar
@@ -22,7 +22,6 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from functools import partial
 
-import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -70,27 +69,11 @@ def config_template():
             .item("rk_order", 1)
             .item("reconstruct_method", 2)
             .item("plm_theta", 1.2)
-            # chunked driver loop (one dispatch per N steps; -1 = auto on
-            # TPU, 0 = per-step host loop, 1 = force)
+            # chunked driver loop (one dispatch per N steps; -1 = auto,
+            # on when the backend is not the CPU; 0 = per-step host loop,
+            # 1 = force)
             .item("fast_step", -1)
-            # n COMPLETE steps per Pallas launch inside the fast loop
-            # (kernels/cloud_update.fused_run_rk2): -1 = auto (on for
-            # TPU backends — hardware-validated: equivalence tests pin
-            # fused_run bitwise-inflow chaining, queue16 cloud_fused_value
-            # on device, queue17 cloudmulti 1.563 ms/step; both fast-loop
-            # branches share the same fault semantics so no extra gates
-            # apply), 0 = per-step launches, 1 = force.
-            .item("multi_launch", -1)
             .item("temperature_floor", 1e-8))
-
-
-def resolve_multi_launch(cfg_value: int, backend: str) -> int:
-    """multi_launch config -> effective mode: -1 = auto (fused_run on
-    real TPU backends, per-step launches elsewhere), 0 = off, 1 = on
-    (the binary subprogram's resolve_multi_launch analog)."""
-    if cfg_value < 0:
-        return 1 if backend == "tpu" else 0
-    return cfg_value
 
 
 # -----------------------------------------------------------------------------
@@ -275,6 +258,7 @@ def write_solution(group, s: Solution):
 
 
 def create_solution(cfg) -> Solution:
+    import h5py
     restart = cfg.get_string("restart")
     if restart:
         with h5py.File(restart, "r") as f:
@@ -377,75 +361,28 @@ def _face_states_1(c, axis, plm_theta, method):
 
 def _advance_once(u0, t, geometry, jet_static, dt, plm_theta: float,
                   method: int, temperature_floor: float, p_guess=None,
-                  return_pressure=False, fused=None):
+                  return_pressure=False):
     """Tuple-form advance: same formulas and per-cell evaluation order as
     _advance_once_stacked, with the state carried as 5 component arrays so
     no stack/concatenate sits in the hot DAG (XLA then fuses whole flux
-    chains; measured a large win on TPU at cloud sizes). p_guess
-    warm-starts the SRHD pressure Newton (see recover_primitive_t)."""
+    chains). p_guess warm-starts the SRHD pressure Newton (see
+    recover_primitive_t)."""
     rv, qv, rc, qc, dv, dAr, dAq = geometry
 
     Ut = tuple(u0[..., k] / dv for k in range(5))
     Pt = srhd.recover_primitive_t(Ut, GAMMA_LAW_INDEX, temperature_floor,
                                   p_guess)
     inflow = _inflow_row(qc, t, jet_static)
-    nr_, nq_ = u0.shape[0], u0.shape[1]
-    if fused is None:
-        fused = (jax.default_backend() == "tpu" and nq_ % 128 == 0
-                 and _pick_tx(nr_) is not None)
-    if fused:
-        u1 = _flux_update_pallas(Pt, u0, inflow, geometry, dt, plm_theta,
-                                 method, interpret=fused == "interpret")
-    else:
-        u1 = _flux_update(Pt, u0, inflow, geometry, dt, plm_theta, method)
+    u1 = _flux_update(Pt, u0, inflow, geometry, dt, plm_theta, method)
     if return_pressure:
         return u1, Pt[4]
     return u1
 
 
-def _pick_tx(nr):
-    # 128 fits under the raised per-kernel vmem limit
-    # (cloud_update.CompilerParams) at NQ=1024; 256 OOMs
-    for t in (128, 64, 32, 16, 8):
-        if nr % t == 0:
-            return t
-    return None
-
-
-def _require_tx(nr):
-    tx = _pick_tx(nr)
-    if tx is None:
-        raise ValueError(
-            f"cloud fused kernel needs the radial extent divisible by 8 "
-            f"(Mosaic sublane alignment); got nr={nr}. Use fused=False / "
-            f"the jnp path for this grid.")
-    return min(tx, nr)
-
-
-def _flux_update_pallas(Pt, u0, inflow, geometry, dt, plm_theta, method,
-                        interpret=False):
-    """Fused-kernel form of _flux_update (kernels/cloud_update.py)."""
-    from mara3_tpu.kernels import cloud_update
-
-    rv, qv, rc, qc, dv, dAr, dAq = geometry
-    nr, nq = u0.shape[0], u0.shape[1]
-    Pe = jnp.stack([jnp.concatenate([inflow[..., k], c, c[-1:]], axis=0)
-                    for k, c in enumerate(Pt)])
-    u0s = jnp.stack([u0[..., k] for k in range(5)])
-    invr = jnp.broadcast_to((1.0 / rc)[:, None], (nr, nq))
-    cotq = jnp.broadcast_to(jnp.tan(jnp.pi / 2 - qc)[None, :], (nr, nq))
-    u1s = cloud_update.fused_flux_update(
-        Pe, u0s, dv, invr, cotq, dAr, dAq[:, :-1], dAq[:, 1:],
-        dt, plm_theta, method, TX=_require_tx(nr),
-        interpret=interpret)
-    return jnp.stack([u1s[k] for k in range(5)], axis=-1)
-
-
 def _flux_update(Pt, u0, inflow, geometry, dt, plm_theta: float,
                  method: int):
     """Everything after primitive recovery: BC extension, face states,
-    HLLE on both axes, geometric sources, conservative update. This is the
-    jnp reference for the fused Pallas kernel (kernels/cloud_update.py)."""
+    HLLE on both axes, geometric sources, conservative update."""
     rv, qv, rc, qc, dv, dAr, dAq = geometry
 
     s0 = srhd.spherical_geometry_source_terms_t(
@@ -475,16 +412,13 @@ def _flux_update(Pt, u0, inflow, geometry, dt, plm_theta: float,
         axis=-1)
 
 
-# dt is TRACED (not static): the fused kernels read it off SMEM, so one
-# Mosaic compile — the >15 min wall at NR=2048 (r3) — serves every
-# dt = dr_min * cfl
+# dt is TRACED (not static), so one compile serves every dt
 @partial(jax.jit, static_argnames=("jet_static", "plm_theta", "method",
                                    "temperature_floor", "rk_order"))
 def _advance_rk(u0, t, rv, qv, jet_static, dt, plm_theta: float,
                 method: int, temperature_floor: float, rk_order: int):
-    # the SoA carry path does the work (fully-fused kernel on TPU,
-    # stage-warm-started Newton); this wrapper keeps the component-last
-    # public state layout
+    # the SoA carry path does the work (stage-warm-started Newton); this
+    # wrapper keeps the component-last public state layout
     us = jnp.stack([u0[..., k] for k in range(5)])
     p0 = jnp.zeros_like(us[0])
     u1s, _ = _advance_rk_carry_soa(us, p0, t, rv, qv, jet_static, dt,
@@ -494,30 +428,11 @@ def _advance_rk(u0, t, rv, qv, jet_static, dt, plm_theta: float,
 
 
 def _advance_once_soa(us, t, geometry, jet_static, dt, plm_theta, method,
-                      temperature_floor, p_guess, fused=None):
-    """SoA [5, NR, NQ] stage: recovery + flux update without any
-    per-stage component stacking (the fused kernel consumes and produces
-    SoA directly)."""
+                      temperature_floor, p_guess):
+    """SoA [5, NR, NQ] stage: recovery + flux update; returns the new
+    state and the recovered pressure (the next stage's Newton guess)."""
     rv, qv, rc, qc, dv, dAr, dAq = geometry
-    nr_, nq_ = us.shape[1], us.shape[2]
     inflow = _inflow_row(qc, t, jet_static)
-    if fused is None:
-        fused = (jax.default_backend() == "tpu" and nq_ % 128 == 0
-                 and _pick_tx(nr_) is not None)
-    if fused:
-        # the whole stage — Newton recovery included — is ONE kernel
-        from mara3_tpu.kernels import cloud_update
-        invr = jnp.broadcast_to((1.0 / rc)[:, None], (nr_, nq_))
-        cotq = jnp.broadcast_to(jnp.tan(jnp.pi / 2 - qc)[None, :],
-                                (nr_, nq_))
-        inflow2 = jnp.stack([inflow[0, :, k] for k in range(5)])
-        pg = (jnp.zeros_like(us[0]) if p_guess is None
-              else jnp.asarray(p_guess))
-        u1s, p_out = cloud_update.fused_stage(
-            inflow2, us, pg, dv, invr, cotq, dAr, dAq[:, :-1], dAq[:, 1:],
-            dt, plm_theta, method, temperature_floor,
-            TX=_require_tx(nr_), interpret=fused == "interpret")
-        return u1s, p_out
     Ut = tuple(us[k] / dv for k in range(5))
     Pt = srhd.recover_primitive_t(Ut, GAMMA_LAW_INDEX, temperature_floor,
                                   p_guess)
@@ -526,53 +441,18 @@ def _advance_once_soa(us, t, geometry, jet_static, dt, plm_theta, method,
     return jnp.moveaxis(u1, -1, 0), Pt[4]
 
 
-LAST_RK_PATH = "unset"   # executed-path attribution for bench artifacts
-                         # (trace-time selection: no silent runtime fallback)
-
-
 def _advance_rk_carry_soa(us, p_prev, t, rv, qv, jet_static, dt,
-                          plm_theta, method, temperature_floor, rk_order,
-                          fused=None):
-    global LAST_RK_PATH
+                          plm_theta, method, temperature_floor, rk_order):
     rc = ops.midpoint_on_axis(rv)
     qc = ops.midpoint_on_axis(qv)
     geometry = (rv, qv, rc, qc, cell_volumes(rv, qv),
                 radial_face_areas(rv, qv), polar_face_areas(rv, qv))
-    nr_, nq_ = us.shape[1], us.shape[2]
-    if fused is None:
-        fused = (jax.default_backend() == "tpu" and nq_ % 128 == 0
-                 and _pick_tx(nr_) is not None)
-    LAST_RK_PATH = ("pallas:cloud_update.fused_step_rk2"
-                    if rk_order == 2 and fused else
-                    "pallas:cloud_update.fused_stage" if fused else "jnp")
-
-    if rk_order == 2 and fused:
-        # BOTH stages (with the in-kernel Newton warm-start chain) in ONE
-        # pallas launch via radial temporal blocking — per-cell identical
-        # to the two-stage path (tests/test_subprogram_cloud.py)
-        from mara3_tpu.kernels import cloud_update
-        rv_, qv_, rc_, qc_, dv, dAr, dAq = geometry
-        inf1 = _inflow_row(qc_, t, jet_static)
-        inf2 = _inflow_row(qc_, t + dt, jet_static)
-        inf1 = jnp.stack([inf1[0, :, k] for k in range(5)])
-        inf2 = jnp.stack([inf2[0, :, k] for k in range(5)])
-        invr = jnp.broadcast_to((1.0 / rc_)[:, None], (nr_, nq_))
-        cotq = jnp.broadcast_to(jnp.tan(jnp.pi / 2 - qc_)[None, :],
-                                (nr_, nq_))
-        pg = (jnp.zeros_like(us[0]) if p_prev is None
-              else jnp.asarray(p_prev))
-        return cloud_update.fused_step_rk2(
-            inf1, inf2, us, pg, dv, invr, cotq, dAr, dAq[:, :-1],
-            dAq[:, 1:], dt, plm_theta, method, temperature_floor,
-            TX=min(64, _require_tx(nr_)), interpret=fused == "interpret")
-
     u1, p1 = _advance_once_soa(us, t, geometry, jet_static, dt, plm_theta,
-                               method, temperature_floor, p_prev, fused)
+                               method, temperature_floor, p_prev)
     if rk_order == 1:
         return u1, p1
     u2, p2 = _advance_once_soa(u1, t + dt, geometry, jet_static, dt,
-                               plm_theta, method, temperature_floor, p1,
-                               fused)
+                               plm_theta, method, temperature_floor, p1)
     return 0.5 * us + 0.5 * u2, p2
 
 
@@ -693,6 +573,7 @@ class AppState:
 
 
 def write_checkpoint(state: AppState) -> AppState:
+    import h5py
     count = state.schedule.num_times_performed("write_checkpoint")
     state = replace(
         state, schedule=state.schedule.mark_as_completed("write_checkpoint"))
@@ -707,6 +588,7 @@ def write_checkpoint(state: AppState) -> AppState:
 
 
 def write_diagnostics(state: AppState) -> AppState:
+    import h5py
     count = state.schedule.num_times_performed("write_diagnostics")
     outdir = state.run_config.get_string("outdir")
     path = serialize.create_numbered_filename("diagnostics", count, "h5",
@@ -728,6 +610,7 @@ def write_time_series(state: AppState) -> AppState:
 
 
 def prepare_filesystem(cfg):
+    import h5py
     import os
     if cfg.get_string("restart"):
         return
@@ -797,13 +680,11 @@ def _main_fast(cfg, state: AppState) -> int:
     so the whole schedule is deterministic — each dispatch runs a
     lax.scan of N full steps (N planned to land exactly on the next task
     due), with one host interaction per chunk instead of per step. Time
-    re-anchors from a float64 host accumulator each chunk (f32 devices).
+    re-anchors from a float64 host accumulator each chunk (f32 runs).
     The physics path is the same _advance_rk_carry_soa the per-step
-    driver uses (fused kernels auto-selected on TPU)."""
+    driver uses."""
     import math as _math
     import time as _time
-
-    from functools import partial
 
     sol = state.solution
     schedule = state.schedule
@@ -830,14 +711,7 @@ def _main_fast(cfg, state: AppState) -> int:
     it = int(sol.iteration)
     nzones = us.shape[1] * us.shape[2]
 
-    # multi_launch: n COMPLETE steps per Pallas LAUNCH
-    # (kernels/cloud_update.fused_run_rk2) — even-n chunks only; odd
-    # remainders fall back to the scan
-    multi = (resolve_multi_launch(cfg.get_int("multi_launch"),
-                                  jax.default_backend()) != 0
-             and jax.default_backend() == "tpu"
-             and us.shape[2] % 128 == 0 and rk in (1, 2))
-
+    # dt rides as a TRACED arg so the compiled chunk is dt-independent
     @partial(jax.jit, static_argnames=("n",))
     def chunk_scan(u, pw, t0, dt_, n: int):
         def body(carry, _):
@@ -847,16 +721,6 @@ def _main_fast(cfg, state: AppState) -> int:
             return (u1, p1, td + dt_), None
         (u, pw, _), _ = jax.lax.scan(body, (u, pw, t0), length=n)
         return u, pw
-
-    def chunk(u, pw, t0, n: int):
-        if multi and n >= 2 and n % 2 == 0:
-            u, pw, _ = advance_n_rk2_soa(u, pw, float(t0), rv, qv,
-                                         jet_static, dt, theta, method,
-                                         tfloor, n, rk=rk)
-            return u, pw
-        # dt rides as a TRACED arg so the compiled chunk (and its Mosaic
-        # kernels) is dt-independent
-        return chunk_scan(u, pw, jnp.asarray(t0, u.dtype), dt, n)
 
     CHUNKS = (64, 16, 4, 1)
     eps = 1e-12
@@ -870,7 +734,7 @@ def _main_fast(cfg, state: AppState) -> int:
                     (nxt - t) / dt - eps))))
         n = next(c for c in CHUNKS if c <= n_cap)
         t0 = _time.perf_counter()
-        us, pz = chunk(us, pz, t, n)
+        us, pz = chunk_scan(us, pz, jnp.asarray(t, us.dtype), dt, n)
         jax.block_until_ready(us)
         ms = (_time.perf_counter() - t0) * 1e3
         t += n * dt
@@ -904,10 +768,7 @@ def main(argv) -> int:
         cfg)
     state = run_tasks(state)
 
-    fast = cfg.get_int("fast_step")
-    if fast < 0:
-        fast = int(jax.default_backend() == "tpu")
-    if fast:
+    if driver.use_fast_driver(cfg):
         return _main_fast(cfg, state)
 
     from mara3_tpu.app.performance import time_execution
@@ -921,41 +782,3 @@ def main(argv) -> int:
 
     run_tasks(next_state(state))
     return 0
-
-
-def advance_n_rk2_soa(us, p_prev, t0, rv, qv, jet_static, dt, plm_theta,
-                      method, temperature_floor, n: int, TX=64, rk=2,
-                      interpret=False):
-    """n complete RK2 steps in ONE Pallas launch (kernels/cloud_update.
-    fused_run_rk2): the per-step launch dispatch and the inter-launch
-    pad/inflow jnp ops disappear. dt is static in this scheme
-    (dr_min * cfl), so the time-dependent jet-nozzle guard rows for all
-    n+1 stage boundaries are precomputed here — built with the same
-    sequential time accumulation the per-step loop uses, so the inflow
-    values are bitwise those of n chained steps. n must be even.
-    Returns (us_out, p_out, t0 + n*dt)."""
-    from mara3_tpu.kernels import cloud_update
-
-    rc = ops.midpoint_on_axis(rv)
-    qc = ops.midpoint_on_axis(qv)
-    nr_, nq_ = us.shape[1], us.shape[2]
-    dv = cell_volumes(rv, qv)
-    dAr = radial_face_areas(rv, qv)
-    dAq = polar_face_areas(rv, qv)
-    invr = jnp.broadcast_to((1.0 / rc)[:, None], (nr_, nq_))
-    cotq = jnp.broadcast_to(jnp.tan(jnp.pi / 2 - qc)[None, :], (nr_, nq_))
-
-    rows = []
-    t = t0
-    for _ in range(n + 1):
-        r = _inflow_row(qc, t, jet_static)
-        rows.append(jnp.stack([r[0, :, k] for k in range(5)]))
-        t = t + dt
-    inflows = jnp.stack(rows)                      # [n+1, 5, NQ]
-
-    u_out, p_out = cloud_update.fused_run_rk2(
-        inflows, us, jnp.asarray(p_prev), dv, invr, cotq, dAr,
-        dAq[:, :-1], dAq[:, 1:], dt, plm_theta, method,
-        temperature_floor, TX=min(TX, _require_tx(nr_)), rk=rk,
-        interpret=interpret)
-    return u_out, p_out, t0 + n * dt

@@ -1,19 +1,14 @@
 """Kelvin-Helmholtz shear layer: 2D isothermal gas on a uniform doubly-
-periodic grid — the PRODUCT workload for the fastest kernel family.
+periodic grid.
 
 Beyond-reference subprogram (the reference ships only empty uniform-grid
 examples, examples/advect_2d.cpp:35-38): same physics and hot-path formulas
 as the flagship binary scheme (PLM + HLLE iso2d Godunov update,
 subprog_binary_scheme.cpp:268-343/568-612) on the one mesh the reference
-never exercises them on — a plain uniform periodic box. That is exactly the
-shape the single-launch Pallas kernels were built for, so this subprogram
-rides them directly:
-
-- TPU: kernels/iso2d_step_v5.py — the WHOLE chunk of steps between two
-  scheduled outputs runs in ONE Pallas launch (HBM ping-pong, ~1e10
-  zones/s at 2048^2, BASELINE.md); v4 stripes then pure jnp as fallbacks.
-- CPU / odd shapes: the jnp scheme (schemes/iso2d_grid.py), bit-identical
-  arithmetic per step.
+never exercises them on — a plain uniform periodic box. The whole chunk of
+steps between two scheduled outputs is one jitted fori_loop over the jnp
+scheme (schemes/iso2d_grid.py); `shards=N` x-shards the grid over N
+devices with ppermute halos (parallel/iso2d_sharded.py).
 
 App plumbing matches the reference's subprogram contract: config template
 with key=val CLI and checkpoint-restart merge (subprog_binary.cpp:155-164),
@@ -35,7 +30,6 @@ import math
 from dataclasses import dataclass, replace
 from functools import partial
 
-import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -51,7 +45,7 @@ def config_template():
     return (ConfigTemplate()
             .item("restart", "")
             .item("outdir", "data")
-            .item("N", 1024)            # square grid; %128 rides the kernels
+            .item("N", 1024)            # square grid
             .item("cs", 1.0)            # isothermal sound speed
             .item("mach", 0.5)          # band speed / cs
             .item("sigma0", 1.0)        # outer band density
@@ -59,10 +53,10 @@ def config_template():
             .item("pert", 0.01)         # vy seed amplitude
             .item("pert_k", 2)          # vy seed wavenumber (cycles/box)
             .item("plm_theta", 1.8)
-            .item("riemann", "hlle")    # hlle | hllc (all paths)
-            .item("rk_order", 1)        # 2 = SSP-RK2 (all paths)
-            # "" = auto (f32 on TPU, platform default elsewhere);
-            # f32 | bf16 | f64. bf16 is the mixed-precision ceiling
+            .item("riemann", "hlle")    # hlle | hllc
+            .item("rk_order", 1)        # 2 = SSP-RK2
+            # "" = JAX's default float type; f32 | bf16 | f64. bf16 is
+            # the mixed-precision ceiling
             # trial (PRECISION.md protocol); checkpoints store f32
             # (HDF5 has no bf16) — exact both ways for bf16 values.
             .item("precision", "")
@@ -72,13 +66,10 @@ def config_template():
             .item("cpi", 0.5)           # checkpoint interval
             .item("dfi", 0.25)          # diagnostics interval
             .item("tsi", 0.05)          # time-series interval
-            # kernel selection: -1 auto (TPU), 0 jnp, 1 kernel (error if
-            # unavailable); tests use "interpret"
-            .item("fast_step", -1)
-            # multi-chip: x-shard the grid over this many devices and run
-            # the v4 stripe kernel under shard_map with ppermute halo
-            # strips (parallel/iso2d_sharded.py). 0 = off, -1 = all
-            # local devices.
+            # multi-device: x-shard the grid over this many devices, the
+            # jnp step under shard_map with ppermute halos
+            # (parallel/iso2d_sharded.py). 0 = off, -1 = all local
+            # devices.
             .item("shards", 0))
 
 
@@ -117,9 +108,7 @@ def initial_conserved(cfg):
 def _dtype_from_cfg(cfg):
     p = cfg.get_string("precision") if "precision" in cfg else ""
     if p == "":
-        # f32 on TPU (the perf configuration), platform default
-        # elsewhere (f64 under the x64 test conftest — parity testing)
-        return jnp.float32 if jax.default_backend() == "tpu" else None
+        return None
     return {"f32": jnp.float32, "bf16": jnp.bfloat16,
             "f64": jnp.float64}[p]
 
@@ -139,27 +128,15 @@ def fixed_timestep(cfg, u0) -> float:
 
 
 # -----------------------------------------------------------------------------
-# advance: v5 single-launch on TPU, jnp everywhere else
+# advance
 # -----------------------------------------------------------------------------
-
-LAST_PATH = "unset"   # executed-path attribution for benchmark artifacts
-
-
-def _pick_tx(nx: int):
-    """Stripe width satisfying v5's layout contract (nx % TX == 0 with an
-    EVEN tile count; TX % 8 == 0). 256 first: it is the bench.py-proven
-    config (1.21e10 zones/s at 2048^2), and matching the official bench
-    exactly means a kh run reuses its persistent-cache compile entry."""
-    for tx in (256, 512, 128, 64, 32, 16, 8):
-        if nx % tx == 0 and (nx // tx) % 2 == 0:
-            return tx
-    return None
-
 
 @partial(jax.jit, static_argnames=("cs2", "dx", "dy", "dt", "theta",
                                    "riemann", "rk_order"))
-def _advance_jnp(u, n, cs2: float, dx: float, dy: float, dt: float,
-                 theta: float, riemann: str, rk_order: int = 1):
+def advance_n(u, n, *, cs2: float, dx: float, dy: float, dt: float,
+              theta: float, riemann: str = "hlle", rk_order: int = 1):
+    """n PLM steps on [N, N, 3] (forward Euler, or SSP-RK2 when
+    rk_order=2) as one fori_loop."""
     step = (iso2d_grid.step_periodic_uniform if rk_order == 1
             else iso2d_grid.step_periodic_uniform_rk2)
 
@@ -168,82 +145,12 @@ def _advance_jnp(u, n, cs2: float, dx: float, dy: float, dt: float,
     return jax.lax.fori_loop(0, n, body, u)
 
 
-def advance_n(u, n: int, *, cs2: float, dx: float, dy: float, dt: float,
-              theta: float, riemann: str = "hlle", rk_order: int = 1,
-              kernel=None):
-    """n PLM+HLLE steps on [N, N, 3] (forward Euler, or SSP-RK2 when
-    rk_order=2 — all paths incl. v5). kernel: None = auto
-    (fused kernel iff on TPU), False = jnp, True = kernel (raise if it
-    cannot run), "interpret" = kernel in interpret mode (tests)."""
-    global LAST_PATH
-    auto = kernel is None
-    if auto:
-        kernel = jax.default_backend() == "tpu"
-    nx, ny, _ = u.shape
-    tx = _pick_tx(nx)
-    usable = (riemann in ("hlle", "hllc") and tx is not None
-              and ny % 128 == 0 and abs(dx - dy) < 1e-15)
-    if kernel and usable and 8 * rk_order <= tx:
-        from mara3_tpu.kernels import iso2d_step_v5 as K5
-        interpret = kernel == "interpret"
-        n8 = (n // 8) * 8
-        try:
-            uT = jnp.moveaxis(u, -1, 0)
-            if n8:
-                uT = K5.advance_n_pallas_v5(
-                    uT, n8, cs2=cs2, dtdx=dt / dx, dtdy=dt / dy,
-                    theta=theta, TX=tx, rk_order=rk_order,
-                    riemann=riemann, interpret=interpret)
-            u1 = jnp.moveaxis(uT, 0, -1)
-            if n - n8:
-                u1 = _advance_jnp(u1, n=n - n8, cs2=cs2, dx=dx, dy=dy,
-                                  dt=dt, theta=theta, riemann=riemann,
-                                  rk_order=rk_order)
-            LAST_PATH = f"pallas_v5_rk{rk_order}[{n8}]+jnp[{n - n8}]"
-            return u1
-        except Exception:
-            if not auto and not interpret:
-                raise                     # explicit request: surface it
-            print("kh: v5 kernel unavailable, trying v4")
-    if kernel and usable:
-        interpret = kernel == "interpret"
-        try:
-            from mara3_tpu.kernels import iso2d_step_v4 as K4
-            n4 = (n // 4) * 4
-            uT = jnp.moveaxis(u, -1, 0)
-            if n4:
-                uT = K4.advance_n_pallas_v4(
-                    uT, n4, G=4, cs2=cs2, dtdx=dt / dx, dtdy=dt / dy,
-                    theta=theta, TX=tx, rk_order=rk_order,
-                    riemann=riemann, interpret=interpret)
-            u1 = jnp.moveaxis(uT, 0, -1)
-            if n - n4:
-                u1 = _advance_jnp(u1, n=n - n4, cs2=cs2, dx=dx, dy=dy,
-                                  dt=dt, theta=theta, riemann=riemann,
-                                  rk_order=rk_order)
-            LAST_PATH = (f"pallas_v4_rk{rk_order}[{n4}]+jnp[{n - n4}]")
-            return u1
-        except Exception:
-            if not auto and not interpret:
-                raise
-            print("kh: v4 kernel unavailable, using the jnp path")
-    elif kernel and not usable and not auto:
-        raise ValueError(
-            f"kh kernel path needs riemann=hlle|hllc, square cells, "
-            f"N%128==0 and an even stripe count "
-            f"(N={nx}x{ny}, riemann={riemann})")
-    LAST_PATH = "jnp"
-    return _advance_jnp(u, n=n, cs2=cs2, dx=dx, dy=dy, dt=dt, theta=theta,
-                        riemann=riemann, rk_order=rk_order)
-
-
 def make_sharded_advance(cfg, dt: float):
-    """Multi-chip advance: x-shard over `shards` devices, v4 stripe
-    kernel under shard_map with ppermute halo strips (the ICI analog of
+    """Multi-device advance: x-shard over `shards` devices, the jnp step
+    under shard_map with ppermute halo strips (the collective analog of
     the reference's isend/irecv guard exchange,
-    subprog_binary_scheme.cpp:132-142). Returns (advance(u, n), mesh, G)
-    with u in the [3, nx, ny] kernel layout; n must be a multiple of G.
-    Off-TPU the kernel runs in interpret mode (CPU-mesh testing)."""
+    subprog_binary_scheme.cpp:132-142). Returns (advance(u, n), mesh)
+    with u the [N, N, 3] state."""
     from jax.sharding import Mesh
     from mara3_tpu.parallel import iso2d_sharded
 
@@ -253,27 +160,16 @@ def make_sharded_advance(cfg, dt: float):
     if ndev > len(devices):
         raise ValueError(f"shards={ndev} but only {len(devices)} devices")
     n = cfg.get_int("N")
-    if n % ndev:
-        raise ValueError(f"N={n} not divisible by shards={ndev}")
-    if n % 128:
-        raise ValueError(f"sharded kernel path needs N%128==0 (N={n})")
-    tx = _pick_tx(n // ndev) or (n // ndev)
-    if (n // ndev) % tx or tx % 8:
-        raise ValueError(f"local width {n // ndev} has no valid stripe")
-    G = 4
-    if 2 * G * cfg.get_int("rk_order") > tx:
-        raise ValueError(
-            f"sharded rk_order={cfg.get_int('rk_order')} needs stripe "
-            f"width >= {2 * G * cfg.get_int('rk_order')} (local width "
-            f"{n // ndev} gives TX={tx}); use fewer shards")
+    if n % ndev or n // ndev < iso2d_grid.GUARD:
+        raise ValueError(f"N={n} does not split into {ndev} shards of at "
+                         f"least {iso2d_grid.GUARD} rows")
     mesh = Mesh(np.array(devices[:ndev]), ("x",))
-    adv = iso2d_sharded.make_advance_v4_sharded(
-        mesh, G=G, cs2=cfg.get_double("cs") ** 2, dtdx=dt * n, dtdy=dt * n,
-        theta=cfg.get_double("plm_theta"), TX=tx,
+    adv = iso2d_sharded.make_advance_sharded(
+        mesh, cs2=cfg.get_double("cs") ** 2, dx=1.0 / n, dy=1.0 / n, dt=dt,
+        theta=cfg.get_double("plm_theta"),
         rk_order=cfg.get_int("rk_order"),
-        riemann=cfg.get_string("riemann"),
-        interpret=jax.default_backend() != "tpu")
-    return adv, mesh, G
+        riemann=cfg.get_string("riemann"))
+    return adv, mesh
 
 
 # -----------------------------------------------------------------------------
@@ -332,6 +228,7 @@ def write_checkpoint(state: Solution, schedule, cfg):
 
 
 def write_diagnostics(state: Solution, schedule, cfg):
+    import h5py
     count = schedule.num_times_performed("write_diagnostics")
     path = serialize.create_numbered_filename("diagnostics", count, "h5",
                                               cfg.get_string("outdir"))
@@ -345,6 +242,7 @@ def write_diagnostics(state: Solution, schedule, cfg):
 
 
 def write_time_series(state: Solution, schedule, cfg):
+    import h5py
     outdir = cfg.get_string("outdir")
     path = (f"{outdir}/time_series.h5" if outdir not in (".", "")
             else "time_series.h5")
@@ -359,6 +257,7 @@ def write_time_series(state: Solution, schedule, cfg):
 
 
 def prepare_filesystem(cfg):
+    import h5py
     import os
     if cfg.get_string("restart"):
         return
@@ -392,6 +291,7 @@ def run_tasks(state: Solution, schedule, cfg):
 # -----------------------------------------------------------------------------
 
 def create_state(cfg) -> Solution:
+    import h5py
     restart = cfg.get_string("restart")
     if restart:
         with h5py.File(restart, "r") as f:
@@ -409,7 +309,6 @@ def create_state(cfg) -> Solution:
 
 @register("kh")
 def main(argv) -> int:
-    global LAST_PATH
     import time as _time
     cfg = driver.create_run_config(config_template(), argv)
     cfg.pretty_print()
@@ -418,23 +317,20 @@ def main(argv) -> int:
     state = create_state(cfg)
     schedule = driver.create_schedule(cfg, list(TASKS))
 
-    kernel_cfg = cfg.get_int("fast_step")
-    kernel = None if kernel_cfg < 0 else bool(kernel_cfg)
     n = cfg.get_int("N")
     kw = dict(cs2=cfg.get_double("cs") ** 2, dx=1.0 / n, dy=1.0 / n,
               dt=state.dt, theta=cfg.get_double("plm_theta"),
               riemann=cfg.get_string("riemann"),
-              rk_order=cfg.get_int("rk_order"), kernel=kernel)
+              rk_order=cfg.get_int("rk_order"))
+    advance = partial(advance_n, **kw)
 
-    sharded_adv = grain = None
     if cfg.get_int("shards") != 0:
         from mara3_tpu.parallel import iso2d_sharded
-        sharded_adv, mesh, grain = make_sharded_advance(cfg, state.dt)
-        uT = iso2d_sharded.shard_state(
-            jnp.moveaxis(state.conserved, -1, 0), mesh)
-        state = replace(state, conserved=jnp.moveaxis(uT, 0, -1))
+        advance, mesh = make_sharded_advance(cfg, state.dt)
+        state = replace(state, conserved=iso2d_sharded.shard_state(
+            state.conserved, mesh))
         print(f"kh: x-sharded over {mesh.shape['x']} devices "
-              f"(v4 stripes + ppermute halos)")
+              f"(ppermute halos)")
     intervals = [("write_checkpoint", cfg.get_double("cpi")),
                  ("write_diagnostics", cfg.get_double("dfi")),
                  ("write_time_series", cfg.get_double("tsi"))]
@@ -444,33 +340,23 @@ def main(argv) -> int:
     while state.time < tfinal - eps:
         schedule = run_tasks(state, schedule, cfg)
         # plan the chunk to land exactly on the next scheduled output (or
-        # tfinal) — on TPU the whole chunk is ONE v5 launch
-        n_cap = max(1, int(math.ceil((tfinal - state.time) / state.dt
+        # tfinal): the whole chunk is one dispatch
+        n_run = max(1, int(math.ceil((tfinal - state.time) / state.dt
                                      - eps)))
         for name, interval in intervals:
             due = schedule.last_performed(name) + interval
             if due > state.time + eps:
-                n_cap = min(n_cap, max(1, int(math.ceil(
+                n_run = min(n_run, max(1, int(math.ceil(
                     (due - state.time) / state.dt - eps))))
         t0 = _time.perf_counter()
-        if sharded_adv is not None:
-            # the sharded kernel advances in grain-sized groups; rounding
-            # UP keeps 'first time >= due' semantics (tasks fire at the
-            # next loop top, exactly like a fixed-dt overshoot)
-            n_run = grain * math.ceil(n_cap / grain)
-            uT = sharded_adv(jnp.moveaxis(state.conserved, -1, 0), n_run)
-            u1 = jnp.moveaxis(uT, 0, -1)
-            LAST_PATH = f"sharded_v4[{mesh.shape['x']}dev]"
-        else:
-            n_run = n_cap
-            u1 = advance_n(state.conserved, n_run, **kw)
+        u1 = advance(state.conserved, n_run)
         jax.block_until_ready(u1)
         ms = (_time.perf_counter() - t0) * 1e3
         state = replace(state, iteration=state.iteration + n_run,
                         time=state.time + n_run * state.dt, conserved=u1)
         schedule = mark_tasks(schedule, state.time, intervals)
         print(f"[{state.iteration:04d}] t={state.time:3.7f} "
-              f"kzps={n_run * n * n / max(ms, 1e-9):3.2f} [{LAST_PATH}]")
+              f"kzps={n_run * n * n / max(ms, 1e-9):3.2f}")
 
     schedule = run_tasks(state, schedule, cfg)
     return 0

@@ -5,7 +5,7 @@ near-cubic block grid, print every block's global index range, build
 per-block vertex and cell-center arrays, and write one block-sharded global
 dataset to test.h5 through hyperslab selections.
 
-TPU-native: the decomposition feeds a jax.sharding.Mesh; the "blocks" are
+Design: the decomposition feeds a jax.sharding.Mesh; the "blocks" are
 device shards of one global array; the hyperslab write is the per-shard
 HDF5 path in parallel/io.py. With procs=0 (default) the actual device count
 is used, demonstrating the real mesh this host would run with.
@@ -13,7 +13,6 @@ is used, demonstrating the real mesh this host would run with.
 
 from __future__ import annotations
 
-import h5py
 import jax
 import jax.numpy as jnp
 
@@ -34,6 +33,7 @@ def config_template():
 
 @register("partdom")
 def main(argv) -> int:
+    import h5py
     cfg = config_template().create().update(argv_to_string_map(argv))
     n = cfg.get_int("N")
     rank = cfg.get_int("rank")

@@ -21,7 +21,6 @@ import math
 import time
 from dataclasses import dataclass, replace
 
-import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,8 +40,7 @@ def config_template():
             .item("dfi", 1.0)
             .item("tfinal", 1.0)
             .item("block_size", 16)
-            .item("depth", 3)
-            .item("kernel", -1))   # -1 auto, 0 jnp, 1 fused, 2 interpret
+            .item("depth", 3))
 
 
 @dataclass(frozen=True)
@@ -60,58 +58,6 @@ def build_mesh(cfg):
         cfg.get_int("depth"))
 
 
-LAST_PATH = "unset"   # executed-path attribution for benchmark artifacts
-
-
-def make_advance_auto(mesh, bs, v, kernel=None):
-    """(u, dt, n) -> u over the octree. On TPU: ONE VMEM-resident
-    Pallas launch with the guard exchange as one-hot matmuls
-    (kernels/sand3d_step.py — the jnp path is gather-bound at ~1.15
-    ms/step for a ~2 MB state); elsewhere the jnp amr3d path.
-    kernel=None auto-selects by backend; "interpret" forces the kernel
-    in interpret mode (tests); False forces jnp."""
-    global LAST_PATH
-    auto = kernel is None
-    if auto:
-        kernel = jax.default_backend() == "tpu" and min(v) > 0
-    jnp_advance = amr3d.make_advance(mesh, bs, v)
-    if not kernel:
-        LAST_PATH = "jnp"
-        return jnp_advance
-
-    from mara3_tpu.kernels import sand3d_step
-    B = mesh.case.shape[0]
-    Bp = -(-B // 128) * 128
-    try:
-        sand3d_step.check_fits_vmem(bs, Bp)
-    except NotImplementedError as e:
-        if not auto:
-            raise
-        print(f"sand3d: {e}; using the jnp path")
-        LAST_PATH = "jnp"
-        return jnp_advance
-    ops = sand3d_step.build_guard_ops(mesh, bs, Bp, np.float32)
-    dxb = np.asarray(2.0 / (1 << mesh.level) / bs, np.float32)
-    varr = np.asarray(v, np.float32)
-
-    def advance(u, dt, n):
-        global LAST_PATH
-        try:
-            out = sand3d_step.advance_n_pallas(
-                u.astype(jnp.float32), dxb, ops, varr, np.float32(dt), n,
-                interpret=kernel == "interpret")
-            LAST_PATH = "pallas:sand3d_step"
-            return out
-        except Exception:
-            if not auto:
-                raise                 # explicit request: surface it
-            print("sand3d: fused kernel unavailable, using the jnp path")
-            LAST_PATH = "jnp"
-            return jnp_advance(u, dt, n)
-
-    return advance
-
-
 def new_solution(cfg, mesh) -> Solution:
     u = amr3d.sample_blocks(
         mesh, cfg.get_int("block_size"),
@@ -120,6 +66,7 @@ def new_solution(cfg, mesh) -> Solution:
 
 
 def write_diagnostics(state, mesh, schedule, cfg):
+    import h5py
     count = schedule.num_times_performed("write_diagnostics")
     path = serialize.create_numbered_filename(
         "diagnostics", count, "h5", cfg.get_string("outdir"))
@@ -150,9 +97,7 @@ def main(argv) -> int:
     # dimension-split upwind stability: dt * sum(v) / dx_min <= 1
     dx_min = 2.0 / (1 << (depth - 1)) / bs
     dt = 0.5 * dx_min / sum(VELOCITY)
-    kernel = {-1: None, 0: False, 1: True,
-              2: "interpret"}[cfg.get_int("kernel")]
-    advance = make_advance_auto(mesh, bs, VELOCITY, kernel=kernel)
+    advance = amr3d.make_advance(mesh, bs, VELOCITY)
 
     schedule = driver.create_schedule(cfg, ["write_diagnostics"])
     eps = 1e-12

@@ -12,7 +12,7 @@ Shock-tracking time series (entropy-gradient locator + parabola-vertex
 sub-cell interpolation, subprog_sedov.cpp:276-308) appends to an extendable
 chunked time_series.h5 exactly as the reference does (:518-530, 600-614).
 
-TPU-native notes:
+Design notes:
 - conserved state is extrinsic (per-cell totals U*dv) in a [nr, 5] array;
   the whole update traces into one fused XLA kernel under jit.
 - dt = CFL * min(dr) depends only on the static grid, so it is a Python
@@ -33,7 +33,6 @@ import math
 from dataclasses import dataclass, replace
 from functools import partial
 
-import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -77,7 +76,8 @@ def config_template():
             .item("explosion_density", 1.0)
             .item("density_index", 0.0)
             .item("newtonian", 0)
-            # chunked driver loop (-1 = auto on TPU, 0 = per-step, 1 = on)
+            # chunked driver loop (-1 = auto, on when the backend is not
+            # the CPU; 0 = per-step, 1 = on)
             .item("fast_step", -1)
             # reconstruction: pcm is the reference scheme
             # (subprog_sedov.cpp runs first-order Godunov); plm and weno5
@@ -168,6 +168,7 @@ def write_solution(group, s: SolutionState):
 
 
 def create_solution(cfg) -> SolutionState:
+    import h5py
     restart = cfg.get_string("restart")
     if restart:
         with h5py.File(restart, "r") as f:
@@ -239,7 +240,7 @@ def _step(system, u0, vertices, dt, reconstruct="pcm", plm_theta=1.5):
     """Tuple-form step: identical formulas/rounding to _step_stacked with
     the state carried as 5 component arrays, so no stack/concatenate sits
     in the fused advance loop (the stacked path materializes ~8 full-size
-    [nr, 5] intermediates per step on TPU)."""
+    [nr, 5] intermediates per step)."""
     if reconstruct == "weno5":
         return _step_stacked(system, u0, vertices, dt, reconstruct,
                              plm_theta)
@@ -275,49 +276,16 @@ def _step(system, u0, vertices, dt, reconstruct="pcm", plm_theta=1.5):
 
 @partial(jax.jit, static_argnames=("newtonian", "num_steps", "reconstruct",
                                    "plm_theta"))
-def _advance_n_jnp(u0, vertices, dt, newtonian: bool, num_steps: int,
-                   reconstruct: str = "pcm", plm_theta: float = 1.5):
+def advance_n(u0, vertices, dt, newtonian: bool, num_steps: int,
+              reconstruct: str = "pcm", plm_theta: float = 1.5):
+    """num_steps Godunov steps as one fused lax.fori_loop, no host
+    syncs."""
     system = euler if newtonian else srhd
 
     def body(_, u):
         return _step(system, u, vertices, dt, reconstruct, plm_theta)
 
     return jax.lax.fori_loop(0, num_steps, body, u0)
-
-
-LAST_PATH = "unset"   # executed-path attribution for benchmark artifacts
-
-
-def advance_n(u0, vertices, dt, newtonian: bool, num_steps: int,
-              reconstruct: str = "pcm", plm_theta: float = 1.5,
-              kernel=None):
-    """num_steps Godunov steps with no host syncs. On TPU the pcm/plm
-    path (euler or srhd) runs as ONE VMEM-resident Pallas launch for all
-    num_steps (kernels/sedov_step.py — the jnp loop is launch-bound at
-    these sizes); otherwise a fused lax.fori_loop. kernel=True/False
-    overrides the auto-selection (tested equivalent in interpret mode)."""
-    auto = kernel is None
-    if auto:
-        kernel = (jax.default_backend() == "tpu"
-                  and reconstruct in ("pcm", "plm", "weno5")
-                  and u0.shape[0] % 128 == 0)
-    global LAST_PATH
-    if kernel:
-        from mara3_tpu.kernels import sedov_step
-        try:
-            out = sedov_step.advance_n_pallas(
-                u0, vertices, float(dt), num_steps, reconstruct, plm_theta,
-                system="euler" if newtonian else "srhd",
-                interpret=kernel == "interpret")
-            LAST_PATH = "pallas:sedov_step"
-            return out
-        except Exception:
-            if not auto:
-                raise                     # explicit request: surface it
-            print("sedov: fused kernel unavailable, using the jnp path")
-    LAST_PATH = "jnp"
-    return _advance_n_jnp(u0, vertices, dt, newtonian, num_steps,
-                          reconstruct, plm_theta)
 
 
 def grid_dt(vertices) -> float:
@@ -407,6 +375,7 @@ class AppState:
 
 
 def write_checkpoint(state: AppState) -> AppState:
+    import h5py
     count = state.schedule.num_times_performed("write_checkpoint")
     state = replace(
         state, schedule=state.schedule.mark_as_completed("write_checkpoint"))
@@ -421,6 +390,7 @@ def write_checkpoint(state: AppState) -> AppState:
 
 
 def write_diagnostics(state: AppState, system) -> AppState:
+    import h5py
     count = state.schedule.num_times_performed("write_diagnostics")
     outdir = state.run_config.get_string("outdir")
     path = serialize.create_numbered_filename("diagnostics", count, "h5",
@@ -438,6 +408,7 @@ def write_diagnostics(state: AppState, system) -> AppState:
 
 
 def write_time_series(state: AppState, system) -> AppState:
+    import h5py
     outdir = state.run_config.get_string("outdir")
     path = f"{outdir}/time_series.h5" if outdir not in (".", "") \
         else "time_series.h5"
@@ -455,6 +426,7 @@ def write_time_series(state: AppState, system) -> AppState:
 def prepare_filesystem(cfg):
     """Create outdir and the extendable chunked time_series.h5
     (reference subprog_sedov.cpp:589-614)."""
+    import h5py
     import os
     if cfg.get_string("restart"):
         return
@@ -495,9 +467,9 @@ def next_state(state: AppState, newtonian: bool) -> AppState:
 
 def _main_fast(cfg, state: AppState, system, newtonian: bool) -> int:
     """Chunked driver loop (cloud._main_fast rationale): the log-grid dt
-    is static, so each dispatch advances N steps (advance_n — ONE fused
-    launch on TPU via kernels/sedov_step) planned to land exactly on the
-    next task due; one host interaction per chunk instead of per step."""
+    is static, so each dispatch advances N steps (one advance_n call)
+    planned to land exactly on the next task due; one host interaction
+    per chunk instead of per step."""
     import math as _math
     import time as _time
 
@@ -565,10 +537,7 @@ def main(argv) -> int:
         cfg)
     state = run_tasks(state, system)
 
-    fast = cfg.get_int("fast_step")
-    if fast < 0:
-        fast = int(jax.default_backend() == "tpu")
-    if fast:
+    if driver.use_fast_driver(cfg):
         return _main_fast(cfg, state, system, newtonian)
 
     from mara3_tpu.app.performance import time_execution

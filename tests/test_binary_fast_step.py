@@ -41,27 +41,50 @@ def compare(sol_h, sol_f, rtol=1e-9, atol=1e-12):
 
 
 @pytest.mark.parametrize("rk_order", [1, 2])
+@pytest.mark.parametrize("riemann", ["hlle", "hllc"])
+@pytest.mark.parametrize("reconstruct", ["plm", "pcm"])
 @pytest.mark.parametrize("conserve_p", [True, False])
-def test_fast_step_matches_host_path(rk_order, conserve_p):
-    """Several fully-jitted steps must track the host-bookkeeping path:
-    state, accounting accumulators, live orbital elements."""
+def test_fast_step_matches_host_path(conserve_p, reconstruct, riemann,
+                                     rk_order):
+    """The driver's fast scan (schemes/binary_step.make_fast_scan) must
+    track the host-bookkeeping path step for step: state, accounting
+    accumulators, live orbital elements."""
     cfg, sd, sol_h = build({
         "depth": 3, "block_size": 8, "rk_order": rk_order,
+        "conserve_linear_p": 1 if conserve_p else 0,
+        "reconstruct_method": reconstruct, "riemann": riemann,
+        "begin_live_binary": 0.0})
+    scan_steps = binary_step.make_fast_scan(sd)
+    s = binary_step.solution_to_arrays(sol_h, np.float64)
+
+    # two steps: pcm+hllc at rk2 faults on the third at this tiny mesh,
+    # where the host path retries and the retry-free scan flags the row
+    s, rows = scan_steps(s, 2)
+    for _ in range(2):
+        sol_h = B.next_solution(sol_h, sd)
+    rows = np.asarray(rows)
+    assert not rows[:, binary_step.INFO_INDEX["invalid"]].any()
+    np.testing.assert_allclose(rows[-1, binary_step.INFO_INDEX["time"]],
+                               sol_h.time, rtol=1e-9)
+    compare(sol_h, binary_step.arrays_to_solution(s, B.Solution))
+
+
+@pytest.mark.parametrize("conserve_p", [True, False])
+def test_fast_step_info_matches_host_diagnostics(conserve_p):
+    """The retrying single step's info scalars match the host
+    diagnostics (disk mass and angular momentum, both formulations)."""
+    cfg, sd, sol_h = build({
+        "depth": 3, "block_size": 8,
         "conserve_linear_p": 1 if conserve_p else 0,
         "begin_live_binary": 0.0})
     step = binary_step.make_fast_step(sd)
     s = binary_step.solution_to_arrays(sol_h, np.float64)
-
-    for _ in range(4):
+    for _ in range(2):
         sol_h = B.next_solution(sol_h, sd)
         s, info = step(s)
         assert not bool(info["retried"])
         assert not bool(info["invalid"])
-
-    sol_f = binary_step.arrays_to_solution(s, B.Solution)
-    compare(sol_h, sol_f)
-
-    # the info scalars match the host diagnostics
+    compare(sol_h, binary_step.arrays_to_solution(s, B.Solution))
     np.testing.assert_allclose(float(info["disk_mass"]),
                                B.disk_mass(sol_h, sd), rtol=1e-9)
     np.testing.assert_allclose(float(info["disk_angular_momentum"]),

@@ -1,22 +1,21 @@
-"""The v4 stripe kernel under shard_map (parallel/iso2d_sharded.py).
+"""The uniform-grid step under shard_map (parallel/iso2d_sharded.py).
 
-Bit parity: each stripe's update is a pure function of its extended
-window, so distributing stripes over devices with ppermute'd shard-edge
-halos must give EXACTLY the single-device result (same TX/G). This is the
-distributed analog of the reference's guard-exchange invariance
-(subprog_binary_scheme.cpp:132-142).
+Each shard's update is a pure function of its halo-extended window, which
+holds the same cells the single-device periodic step reads, so
+distributing rows over devices with ppermute'd halos must reproduce the
+single-device kh advance. This is the distributed analog of the
+reference's guard-exchange invariance (subprog_binary_scheme.cpp:132-142).
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 from jax.sharding import Mesh
 
-from mara3_tpu.kernels import iso2d_step_v4 as K4
 from mara3_tpu.parallel import iso2d_sharded
 from mara3_tpu.physics import iso2d
+from mara3_tpu.subprograms import kh
 
 
 def random_state(nx, ny, seed=7):
@@ -28,40 +27,18 @@ def random_state(nx, ny, seed=7):
     return iso2d.to_conserved_per_area(Pr)
 
 
-@pytest.mark.parametrize("n_shards", [2, 8])
-def test_v4_sharded_bitmatches_single_device(n_shards):
-    devices = jax.devices()[:n_shards]
-    mesh = Mesh(np.array(devices), ("x",))
+@pytest.mark.parametrize("riemann", ["hlle", "hllc"])
+@pytest.mark.parametrize("rk_order", [1, 2])
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+def test_sharded_matches_single_device(n_shards, rk_order, riemann):
+    mesh = Mesh(np.array(jax.devices()[:n_shards]), ("x",))
+    nx, ny = 32, 16
+    u = random_state(nx, ny, seed=n_shards)
+    kw = dict(cs2=0.1, dx=1.0 / nx, dy=1.0 / ny, dt=2e-3, theta=1.8,
+              rk_order=rk_order, riemann=riemann)
 
-    G, TX = 4, 16
-    gi_local = 2
-    nx, ny = n_shards * gi_local * TX, 128
-    u = jnp.moveaxis(random_state(nx, ny), -1, 0)
-    cs2, dx, dt, theta = 0.1, 2.0 / nx, 2e-4, 1.8
-    kw = dict(cs2=cs2, dtdx=dt / dx, dtdy=dt / dx, theta=theta, TX=TX)
-
-    advance = iso2d_sharded.make_advance_v4_sharded(
-        mesh, G=G, interpret=True, **kw)
-    us = iso2d_sharded.shard_state(u, mesh)
-    got = advance(us, 2 * G)
-
-    with pltpu.force_tpu_interpret_mode():
-        want = K4.advance_n_pallas_v4(u, 2 * G, G=G, **kw)
-
-    assert np.array_equal(np.asarray(got), np.asarray(want))
-
-
-def test_v4_sharded_single_shard_degenerate():
-    """num_shards=1 must skip ppermute and still bit-match."""
-    mesh = Mesh(np.array(jax.devices()[:1]), ("x",))
-    G, TX = 2, 16
-    nx, ny = 2 * TX, 128
-    u = jnp.moveaxis(random_state(nx, ny, seed=3), -1, 0)
-    cs2, dx, dt, theta = 0.1, 2.0 / nx, 2e-4, 1.8
-    kw = dict(cs2=cs2, dtdx=dt / dx, dtdy=dt / dx, theta=theta, TX=TX)
-    advance = iso2d_sharded.make_advance_v4_sharded(
-        mesh, G=G, interpret=True, **kw)
-    got = advance(iso2d_sharded.shard_state(u, mesh), G)
-    with pltpu.force_tpu_interpret_mode():
-        want = K4.pallas_step_v4(u, G=G, **kw)
-    assert np.array_equal(np.asarray(got), np.asarray(want))
+    advance = iso2d_sharded.make_advance_sharded(mesh, **kw)
+    got = advance(iso2d_sharded.shard_state(u, mesh), 3)
+    want = kh.advance_n(u, 3, **kw)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=1e-14, atol=0)

@@ -231,44 +231,6 @@ def test_amrsand_blob_advects():
     np.testing.assert_allclose(c1[1] - c0[1], 0.5 * state.time, rtol=0.1)
 
 
-def test_amrsand_fused_kernel_matches_advance():
-    """kernels/amrsand_step.advance_n_pallas (whole mesh VMEM-resident,
-    guard exchange as exact one-hot matmuls, G steps per launch,
-    interpret mode) vs the jnp _advance iterated — on a tree with live
-    level jumps so all three guard cases (same / coarse / fine) fire."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from mara3_tpu.kernels import amrsand_step
-    from mara3_tpu.subprograms import amrsand
-
-    cfg = (amrsand.config_template().create()
-           .update({"depth": 3, "block_size": 8}))
-    state = amrsand.new_solution(cfg)
-    nt = block_layout.build_neighbor_table(state.leaves)
-    assert (np.asarray(nt.case) == 1).any() and \
-        (np.asarray(nt.case) == 2).any()          # live level jumps
-    bs = 8
-    dxb = jnp.asarray(block_layout.block_dx(state.leaves, bs))
-    depth = 3
-    dt = 2.0 / bs / (1 << depth)
-    nt_arrays = (nt.case, nt.same_id, nt.coarse_id, nt.coarse_half,
-                 nt.fine_id)
-    nsteps = 5
-
-    expected = state.conserved
-    for _ in range(nsteps):
-        expected = amrsand._advance(expected, dxb, nt_arrays, dt)
-
-    B = state.conserved.shape[0]
-    Bp = -(-B // 8) * 8
-    mats = amrsand_step.build_guard_mats(nt, bs, Bp, np.float64)
-    with pltpu.force_tpu_interpret_mode():
-        got = amrsand_step.advance_n_pallas(
-            state.conserved, dxb, mats, dt, nsteps, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
-                               rtol=1e-13, atol=1e-15)
-
-
 def test_get_cell_block_three_cases():
     """API parity with mara::get_cell_block (mesh_tree_operators.hpp:
     223-252): same-level leaf, prolonged parent quadrant, coarsened
@@ -363,45 +325,38 @@ def test_regrid_remap_exact_mass():
     np.testing.assert_allclose(m1, m0, rtol=1e-13)
 
 
-def test_extend_blocks_fast_matches_reference_path():
-    """The one-gather guard exchange must match the masked-select path on a
-    multi-level tree (both axes, all three face cases)."""
-    leaves = sorted(
-        {(1, 1, 0), (1, 0, 1), (1, 1, 1)} | set(tree.children((1, 0, 0))),
-        key=tree.hilbert_key)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("depth", [3, 4, 5])
+def test_extend_blocks_fast_matches_reference_path(depth, dtype):
+    """The one-gather guard exchange (and the edge-strip form the sharded
+    advance uses) must be BITWISE equal to the masked-select path on the
+    flagship's focused trees, both axes, all three face cases: the copies
+    are exact and the fine average sums in the same order, so no backend
+    may round them differently."""
+    from mara3_tpu.subprograms import binary as B
+
+    cfg = B.create_config_template().create().update({"depth": depth})
+    leaves = list(B.create_leaves(cfg))
     bs = 8
     nt = block_layout.build_neighbor_table(leaves)
-    gg = block_layout.build_guard_gather(nt, bs)
-    U = make_blocks(leaves, bs)
-    for axis in (0, 1):
-        ref = block_layout.extend_blocks(U, nt, axis=axis, g=1)
-        fast = block_layout.extend_blocks_fast(U, gg, axis=axis)
-        np.testing.assert_allclose(np.asarray(fast), np.asarray(ref),
-                                   rtol=1e-14, atol=1e-16)
-
-
-def test_guard_strips_all_bitwise_matches_per_axis():
-    """The batched one-pass guard gather (guard_strips_all) must be
-    bit-identical to the four per-axis guard_strips_soa calls on a mesh
-    with all three neighbor cases."""
-    import numpy as np
-    import jax.numpy as jnp
-    from mara3_tpu.subprograms import binary as B
-    from mara3_tpu.mesh import block_layout as BL
-
-    cfg = B.create_config_template().create().update(
-        {"depth": 3, "block_size": 8})
-    sd = B.create_solver_data(cfg)
-    nt, bs = sd.nt, 8
     assert set(np.unique(nt.case)) == {0, 1, 2}
-    rng = np.random.default_rng(7)
-    pT = jnp.asarray(rng.standard_normal((nt.case.shape[0], 3, bs, bs)))
-    consts = BL.build_soa_guard(nt, bs)
-    ref = (BL.guard_strips_soa(pT, nt, consts, 0)
-           + BL.guard_strips_soa(pT, nt, consts, 1))
-    got = BL.guard_strips_all(pT, consts, BL.GuardAllTables(nt, bs))
-    for g, r in zip(got, ref):
-        assert np.array_equal(np.asarray(g), np.asarray(r))
+    gg = block_layout.build_guard_gather(nt, bs)
+    rng = np.random.default_rng(depth)
+    U = jnp.asarray(rng.uniform(0.5, 2.0, (len(leaves), bs, bs, 3)), dtype)
+    for axis in (0, 1):
+        ref = np.asarray(block_layout.extend_blocks(U, nt, axis=axis, g=1))
+        fast = np.asarray(block_layout.extend_blocks_fast(U, gg, axis=axis))
+        assert fast.dtype == dtype
+        assert np.array_equal(fast, ref)
+
+        rows = (0, 1, bs - 2, bs - 1)
+        E = jnp.stack([U[:, r] if axis == 0 else U[:, :, r] for r in rows],
+                      axis=1).transpose(0, 3, 1, 2)       # [B, C, 4, bs]
+        lo, hi = block_layout.guard_strips_from_edges(E, nt, axis)
+        guard = np.moveaxis(ref, 1 + axis, 1)             # guards at 0, -1
+        assert np.array_equal(np.asarray(lo), guard[:, 0].transpose(0, 2, 1))
+        assert np.array_equal(np.asarray(hi),
+                              guard[:, -1].transpose(0, 2, 1))
 
 
 def test_get_vertex_block_three_cases():

@@ -234,8 +234,7 @@ def test_two_process_distributed_session(tmp_path):
         port = s.getsockname()[1]
 
     env = {k: v for k, v in os.environ.items()
-           if k not in ("XLA_FLAGS", "JAX_PLATFORMS", "JAX_PLATFORM_NAME",
-                        "MARA3_TPU_PLATFORM")}
+           if k not in ("XLA_FLAGS", "JAX_PLATFORMS", "JAX_PLATFORM_NAME")}
     procs = [subprocess.Popen(
         [sys.executable, worker, str(port), str(r), str(tmp_path)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -283,8 +282,7 @@ def test_two_process_distributed_sedov_with_restart(tmp_path):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     worker = os.path.join(repo, "tests", "distributed_sedov_worker.py")
     env = {k: v for k, v in os.environ.items()
-           if k not in ("XLA_FLAGS", "JAX_PLATFORMS", "JAX_PLATFORM_NAME",
-                        "MARA3_TPU_PLATFORM")}
+           if k not in ("XLA_FLAGS", "JAX_PLATFORMS", "JAX_PLATFORM_NAME")}
 
     def spawn_phase(phase):
         with socket.socket() as s:
@@ -352,8 +350,7 @@ def test_two_process_distributed_binary_with_restart(tmp_path):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     worker = os.path.join(repo, "tests", "distributed_binary_worker.py")
     env = {k: v for k, v in os.environ.items()
-           if k not in ("XLA_FLAGS", "JAX_PLATFORMS", "JAX_PLATFORM_NAME",
-                        "MARA3_TPU_PLATFORM")}
+           if k not in ("XLA_FLAGS", "JAX_PLATFORMS", "JAX_PLATFORM_NAME")}
 
     def spawn_phase(phase):
         with socket.socket() as s:

@@ -1,6 +1,6 @@
 """Dual-precision bounds, pinned (PRECISION.md is the narrative).
 
-The performance path runs f32 on TPU while parity runs f64 on CPU
+The performance path runs f32 on the accelerator while parity runs f64 on CPU
 (SURVEY.md §7 'dual-precision support from day one'). These tests pin the
 f32-vs-f64 error of each physics system to its derived scale, so a
 regression in the numerics (or an overly aggressive fast-math change)

@@ -232,141 +232,3 @@ def test_binary_dynamic_regrid_conserves_and_tracks(tmp_path):
     with h5py.File(last) as f:
         for k in f["solution/conserved_u"]:
             assert np.isfinite(f[f"solution/conserved_u/{k}"][()]).all()
-
-
-def test_multi_launch_driver_matches_per_step(tmp_path):
-    """multi_launch=k runs the SAME physics through the K-steps-per-launch
-    kernel inside the real driver loop (hybrid scan, schedule replay,
-    checkpoints): final checkpoint state must match the per-step fast
-    driver at round-off."""
-    args = ["binary", "depth=3", "block_size=16", "rk_order=1",
-            "tfinal=0.04", "cpi=0.02", "tsi=0.015", "fast_step=1"]
-    old = os.getcwd()
-    try:
-        for sub, extra in (("per", "multi_launch=0"),
-                           ("multi", "multi_launch=4")):
-            d = tmp_path / sub
-            d.mkdir()
-            os.chdir(d)
-            assert B.main(args + [extra]) == 0
-    finally:
-        os.chdir(old)
-
-    def last_state(d):
-        name = sorted(f for f in os.listdir(d / "data")
-                      if f.startswith("chkpt"))[-1]
-        with h5py.File(d / "data" / name) as f:
-            g = f["solution"]["conserved_u"]
-            leaves = sorted(g.keys())
-            return np.stack([g[k][()] for k in leaves]), \
-                f["solution"]["time"][()]
-
-    (up, tp), (um, tm) = last_state(tmp_path / "per"), \
-        last_state(tmp_path / "multi")
-    np.testing.assert_allclose(tm, tp, rtol=1e-12)
-    np.testing.assert_allclose(um, up, rtol=1e-9, atol=1e-12)
-
-
-def test_multi_launch_auto_resolves_by_backend(tmp_path, capsys):
-    """multi_launch=-1 = auto: k=16 on a TPU backend, per-step scan
-    elsewhere (this test runs on CPU, so auto must mean OFF — no
-    fallback notice, because the hybrid scan is never attempted)."""
-    old = os.getcwd()
-    try:
-        os.chdir(tmp_path)
-        assert B.main(["binary", "depth=3", "block_size=16", "rk_order=1",
-                       "tfinal=0.02", "cpi=0.02", "tsi=0.015",
-                       "fast_step=1", "multi_launch=-1", "outdir=."]) == 0
-    finally:
-        os.chdir(old)
-    out = capsys.readouterr().out
-    assert "falling back to per-step scan" not in out
-    import glob
-
-    import h5py
-    last = sorted(glob.glob(str(tmp_path / "chkpt.*.h5")))[-1]
-    with h5py.File(last) as f:
-        for k in f["solution/conserved_u"]:
-            assert np.isfinite(f[f"solution/conserved_u/{k}"][()]).all()
-
-def test_resolve_multi_launch_by_backend():
-    """Both halves of multi_launch=-1 auto resolution as a unit (r4
-    ADVICE: the TPU half was untested — a regression in the backend
-    check would silently leave auto=off everywhere)."""
-    assert B.resolve_multi_launch(-1, "tpu") == 16
-    assert B.resolve_multi_launch(-1, "cpu") == 0
-    assert B.resolve_multi_launch(0, "tpu") == 0
-    assert B.resolve_multi_launch(8, "cpu") == 8
-
-
-def test_multi_vmem_estimate_matches_r4_hardware_anchor():
-    """The scoped-VMEM model is anchored to the r4 hardware OOM
-    (logs_r4/soak_bmulti3.log: 148 blocks at d6b96 rk1 -> 123.87 MB with
-    the u input VMEM-staged; 136 compiled and ran). The u input now rides
-    HBM (one DMA), removing one window/block, so 148 must FIT (the soak's
-    regrid stays on the multi path) while meshes past ~166 blocks at
-    these shapes must be rejected at build time."""
-    from mara3_tpu.kernels import binary_multi as BM
-    e136 = BM.estimate_scoped_vmem_mb(136, 96, C=3, rk_order=1, K2=4)
-    e148 = BM.estimate_scoped_vmem_mb(148, 96, C=3, rk_order=1, K2=4)
-    assert e136 < e148 < BM.VMEM_GUARD_MB
-    # pre-diet anchor arithmetic: +1 window/block reproduces the OOM
-    w = 3 * 96 * 128 * 4 / 1024 / 1024
-    assert abs((e148 + w * 148) - 123.87) / 123.87 < 0.05
-    assert BM.estimate_scoped_vmem_mb(176, 96, rk_order=1) \
-        > BM.VMEM_GUARD_MB
-    # rk2 adds the stage-state scratch: strictly costlier
-    assert BM.estimate_scoped_vmem_mb(136, 96, rk_order=2) > e136
-
-
-def test_multi_scan_vmem_guard_raises_on_tpu(monkeypatch):
-    """On a real TPU backend, a mesh over the VMEM guard must be rejected
-    at BUILD time with NotImplementedError (so build_scan's existing
-    fallback fires) — the r4 soak died at first execution instead."""
-    import jax
-
-    from mara3_tpu.kernels import binary_multi as BM
-    from mara3_tpu.schemes import binary_step
-
-    cfg = small_cfg(rk_order=1, block_size=16)
-    sd = B.create_solver_data(cfg)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    monkeypatch.setattr(BM, "VMEM_GUARD_MB", 0.01)
-    with pytest.raises(NotImplementedError, match="VMEM budget"):
-        binary_step.make_multi_scan(sd, k_chunk=4)
-
-
-def test_driver_falls_back_when_multi_scan_oomns_at_runtime(tmp_path,
-                                                            monkeypatch,
-                                                            capsys):
-    """The build-time estimate is a model: if the compile still exhausts
-    VMEM (it surfaces at first execution of the scan), the driver must
-    fall back to the per-step scan and finish the run — never die (the
-    reference never crashes on mesh growth, subprog_binary.cpp:285-292
-    recovers from faults; mesh changes are free)."""
-    from mara3_tpu.schemes import binary_step
-
-    def fake_hybrid(sd, k_chunk=16, live=False):
-        def scan(s, n):
-            raise RuntimeError(
-                "Ran out of memory in memory space vmem: Scoped "
-                "allocation with size 123.87M and limit 120.00M exceeded")
-        scan.k_chunk = k_chunk
-        return scan
-
-    monkeypatch.setattr(binary_step, "make_hybrid_scan", fake_hybrid)
-    old = os.getcwd()
-    try:
-        os.chdir(tmp_path)
-        assert B.main(["binary", "depth=3", "block_size=16", "rk_order=1",
-                       "tfinal=0.02", "cpi=0.02", "tsi=0.015",
-                       "fast_step=1", "multi_launch=4", "outdir=."]) == 0
-    finally:
-        os.chdir(old)
-    out = capsys.readouterr().out
-    assert "falling back to per-step scan" in out
-    import glob
-    last = sorted(glob.glob(str(tmp_path / "chkpt.*.h5")))[-1]
-    with h5py.File(last) as f:
-        for k in f["solution/conserved_u"]:
-            assert np.isfinite(f[f"solution/conserved_u/{k}"][()]).all()

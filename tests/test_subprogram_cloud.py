@@ -78,7 +78,7 @@ def test_cloud_solid_angle_sums_to_4pi(tmp_path):
 def test_new_solution_finite_in_float32():
     """The envelope model's CGS intermediates (r^3 ~ 1e39) overflow f32;
     new_solution must evaluate the model in x64 and hand back finite
-    code-unit values in the run dtype (TPU runs are f32)."""
+    code-unit values in the run dtype (f32 runs)."""
     import jax
     import numpy as np
     from mara3_tpu.subprograms import cloud
@@ -148,285 +148,9 @@ def test_advance_rk_carry_matches_advance_rk():
     assert np.isfinite(np.asarray(p1)).all()
 
 
-@pytest.mark.heavy
-def test_pallas_flux_update_matches_jnp():
-    """kernels/cloud_update.py (fused flux+update, interpret mode) vs the
-    jnp _flux_update, PCM and PLM."""
-    import jax.numpy as jnp
-    import numpy as np
-    from jax.experimental.pallas import tpu as pltpu
-
-    from mara3_tpu.core import ops
-    from mara3_tpu.subprograms import cloud
-
-    cfg = cloud.config_template().create().update(
-        {"nr": 128, "num_decades": 0.5})
-    state = cloud.new_solution(cfg)
-    u0 = jnp.asarray(state.conserved, jnp.float32)
-    rv = jnp.asarray(state.radial_vertices, jnp.float32)
-    qv = jnp.asarray(state.polar_vertices, jnp.float32)
-    rc, qc = ops.midpoint_on_axis(rv), ops.midpoint_on_axis(qv)
-    geometry = (rv, qv, rc, qc, cloud.cell_volumes(rv, qv),
-                cloud.radial_face_areas(rv, qv),
-                cloud.polar_face_areas(rv, qv))
-    jet = cloud.make_jet_nozzle_model(cfg)
-    units = cloud.make_reference_units(cfg)
-    jet_static = (jet.Ej, jet.G0, jet.tj, jet.qj, jet.as_, jet.r0,
-                  units.mass_density, units.time)
-    dt = float(rv[1] - rv[0]) * cfg.get_double("cfl_number")
-
-    dv = geometry[4]
-    Ut = tuple(u0[..., k] / dv for k in range(5))
-    from mara3_tpu.physics import srhd
-    Pt = srhd.recover_primitive_t(Ut, cloud.GAMMA_LAW_INDEX, 1e-6)
-    inflow = jnp.asarray(cloud._inflow_row(qc, 0.0, jet_static),
-                         jnp.float32)
-
-    # tolerance calibration (applies to every fused-vs-jnp comparison in
-    # this file): the kernels spell the SRHD math reciprocal-first
-    # (cloud_update._rcp), so the Newton recovery follows a slightly
-    # different rounding trajectory and may stop anywhere inside the
-    # |f| < 1e-10 band — a few cells per 1e5 land ~1e-8 absolute apart
-    # on near-zero momenta. rtol pins the physics; atol absorbs that
-    # stopping-band slack.
-    for method in (1, 2):
-        want = cloud._flux_update(Pt, u0, inflow, geometry, dt, 1.5,
-                                  method)
-        with pltpu.force_tpu_interpret_mode():
-            got = cloud._flux_update_pallas(Pt, u0, inflow, geometry, dt,
-                                            1.5, method, interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=5e-5, atol=1e-7)
-
-
-@pytest.mark.heavy
-def test_fused_stage_matches_jnp_stage():
-    """kernels/cloud_update.fused_stage (in-kernel recovery + fluxes +
-    update, interpret mode) vs the jnp SoA stage, warm and cold starts.
-
-    This test (and the evolved-warm one below) stays at nr=128 — the
-    full-lane-width sentinel; the composite-launch tests (rk2 step, n-step
-    runs) cover the same kernel bodies at nr=64 to keep the interpret-mode
-    suite cost bounded."""
-    import jax.numpy as jnp
-    import numpy as np
-    from jax.experimental.pallas import tpu as pltpu
-
-    from mara3_tpu.core import ops
-    from mara3_tpu.subprograms import cloud
-
-    cfg = cloud.config_template().create().update(
-        {"nr": 128, "num_decades": 1.0})
-    state = cloud.new_solution(cfg)
-    us = jnp.moveaxis(jnp.asarray(state.conserved, jnp.float32), -1, 0)
-    rv = jnp.asarray(state.radial_vertices, jnp.float32)
-    qv = jnp.asarray(state.polar_vertices, jnp.float32)
-    rc, qc = ops.midpoint_on_axis(rv), ops.midpoint_on_axis(qv)
-    geometry = (rv, qv, rc, qc, cloud.cell_volumes(rv, qv),
-                cloud.radial_face_areas(rv, qv),
-                cloud.polar_face_areas(rv, qv))
-    jet = cloud.make_jet_nozzle_model(cfg)
-    units = cloud.make_reference_units(cfg)
-    jet_static = (jet.Ej, jet.G0, jet.tj, jet.qj, jet.as_, jet.r0,
-                  units.mass_density, units.time)
-    dt = float(rv[1] - rv[0]) * cfg.get_double("cfl_number")
-
-    for method in (1, 2):
-        a, pa = cloud._advance_once_soa(us, 0.0, geometry, jet_static, dt,
-                                        1.5, method, 1e-6, None,
-                                        fused=False)
-        with pltpu.force_tpu_interpret_mode():
-            b, pb = cloud._advance_once_soa(us, 0.0, geometry, jet_static,
-                                            dt, 1.5, method, 1e-6, None,
-                                            fused="interpret")
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   rtol=5e-5, atol=1e-7)
-        np.testing.assert_allclose(np.asarray(pb), np.asarray(pa),
-                                   rtol=5e-5, atol=1e-9)
-
-
-def test_fused_stage_matches_jnp_stage_evolved_warm():
-    """fused_stage vs the jnp stage on an EVOLVED state with a warm-started
-    Newton (the production path: p carried across steps)."""
-    import jax.numpy as jnp
-    import numpy as np
-    from jax.experimental.pallas import tpu as pltpu
-
-    from mara3_tpu.core import ops
-    from mara3_tpu.subprograms import cloud
-
-    cfg = cloud.config_template().create().update(
-        {"nr": 128, "num_decades": 1.0})
-    state = cloud.new_solution(cfg)
-    rv = jnp.asarray(state.radial_vertices, jnp.float32)
-    qv = jnp.asarray(state.polar_vertices, jnp.float32)
-    rc, qc = ops.midpoint_on_axis(rv), ops.midpoint_on_axis(qv)
-    geometry = (rv, qv, rc, qc, cloud.cell_volumes(rv, qv),
-                cloud.radial_face_areas(rv, qv),
-                cloud.polar_face_areas(rv, qv))
-    jet = cloud.make_jet_nozzle_model(cfg)
-    units = cloud.make_reference_units(cfg)
-    jet_static = (jet.Ej, jet.G0, jet.tj, jet.qj, jet.as_, jet.r0,
-                  units.mass_density, units.time)
-    dt = float(rv[1] - rv[0]) * cfg.get_double("cfl_number")
-
-    us = jnp.moveaxis(jnp.asarray(state.conserved, jnp.float32), -1, 0)
-    p = jnp.zeros_like(us[0])
-    t = 0.0
-    for _ in range(4):
-        us, p = cloud._advance_once_soa(us, t, geometry, jet_static, dt,
-                                        1.5, 2, 1e-6, p, fused=False)
-        t += dt
-
-    a, pa = cloud._advance_once_soa(us, t, geometry, jet_static, dt,
-                                    1.5, 2, 1e-6, p, fused=False)
-    with pltpu.force_tpu_interpret_mode():
-        b, pb = cloud._advance_once_soa(us, t, geometry, jet_static, dt,
-                                        1.5, 2, 1e-6, p, fused="interpret")
-    np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                               rtol=5e-5, atol=1e-7)
-    np.testing.assert_allclose(np.asarray(pb), np.asarray(pa),
-                               rtol=5e-5, atol=1e-9)
-
-
-@pytest.mark.heavy
-def test_fused_rk2_step_matches_two_stages():
-    """kernels/cloud_update.fused_step_rk2 (BOTH RK2 stages + average in
-    one launch, interpret mode) must be per-cell identical to two
-    fused_stage launches with the pressure carry, and the public carry
-    path must route through it (fused='interpret')."""
-    import jax.numpy as jnp
-    import numpy as np
-    from jax.experimental.pallas import tpu as pltpu
-
-    from mara3_tpu.core import ops
-    from mara3_tpu.kernels import cloud_update as CU
-    from mara3_tpu.subprograms import cloud
-
-    cfg = cloud.config_template().create().update(
-        {"nr": 128, "num_decades": 0.5})
-    state = cloud.new_solution(cfg)
-    rv = jnp.asarray(state.radial_vertices, jnp.float32)
-    qv = jnp.asarray(state.polar_vertices, jnp.float32)
-    rc, qc = ops.midpoint_on_axis(rv), ops.midpoint_on_axis(qv)
-    dv = cloud.cell_volumes(rv, qv)
-    dAr = cloud.radial_face_areas(rv, qv)
-    dAq = cloud.polar_face_areas(rv, qv)
-    nr, nq = dv.shape
-    jet = cloud.make_jet_nozzle_model(cfg)
-    units = cloud.make_reference_units(cfg)
-    jet_static = (jet.Ej, jet.G0, jet.tj, jet.qj, jet.as_, jet.r0,
-                  units.mass_density, units.time)
-    dt = float(rv[1] - rv[0]) * cfg.get_double("cfl_number")
-    t = 0.0
-    us = jnp.moveaxis(jnp.asarray(state.conserved, jnp.float32), -1, 0)
-    pg = jnp.zeros_like(us[0])
-    inf1 = cloud._inflow_row(qc, t, jet_static)
-    inf2 = cloud._inflow_row(qc, t + dt, jet_static)
-    inf1 = jnp.stack([inf1[0, :, k] for k in range(5)]).astype(jnp.float32)
-    inf2 = jnp.stack([inf2[0, :, k] for k in range(5)]).astype(jnp.float32)
-    invr = jnp.broadcast_to((1.0 / rc)[:, None], (nr, nq))
-    cotq = jnp.broadcast_to(jnp.tan(jnp.pi / 2 - qc)[None, :], (nr, nq))
-
-    import jax
-    stage = jax.jit(lambda i1, u, p: CU.fused_stage(
-        i1, u, p, dv, invr, cotq, dAr, dAq[:, :-1], dAq[:, 1:],
-        dt, 1.5, 2, 1e-6, TX=16, interpret=True))
-    with pltpu.force_tpu_interpret_mode():
-        u1a, p1a = stage(inf1, us, pg)
-        u2a, p2a = stage(inf2, u1a, p1a)
-        got, pgot = CU.fused_step_rk2(inf1, inf2, us, pg, dv, invr, cotq,
-                                      dAr, dAq[:, :-1], dAq[:, 1:], dt,
-                                      1.5, 2, 1e-6, TX=16, interpret=True)
-    want = 0.5 * us + 0.5 * u2a
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=0, atol=0)
-    np.testing.assert_allclose(np.asarray(pgot), np.asarray(p2a),
-                               rtol=0, atol=0)
-
-    # the public carry path (rk_order=2, fused) routes through the single
-    # launch and tracks the jnp two-stage path
-    with pltpu.force_tpu_interpret_mode():
-        ub, pb = cloud._advance_rk_carry_soa(
-            us, pg, t, rv, qv, jet_static, dt, 1.5, 2, 1e-6, 2,
-            fused="interpret")
-    ua, pa = cloud._advance_rk_carry_soa(
-        us, pg, t, rv, qv, jet_static, dt, 1.5, 2, 1e-6, 2, fused=False)
-    np.testing.assert_allclose(np.asarray(ub), np.asarray(ua),
-                               rtol=5e-5, atol=1e-7)
-    np.testing.assert_allclose(np.asarray(pb), np.asarray(pa),
-                               rtol=5e-5, atol=1e-9)
-
-
-@pytest.mark.heavy
-def test_fused_run_rk2_matches_chained_steps():
-    """kernels/cloud_update.fused_run_rk2 (n COMPLETE RK2 steps in ONE
-    launch: HBM ping-pong, per-step inflow stack) must be per-cell
-    identical to n chained fused_step_rk2 launches with the pressure
-    carry — the cloud analog of the v5/binary_multi single-launch
-    designs. n=4 runs two full ping-pong rounds so both buffer roles and
-    the warm-start chain across launch-internal steps execute."""
-    import jax.numpy as jnp
-    import numpy as np
-    from jax.experimental.pallas import tpu as pltpu
-
-    from mara3_tpu.core import ops
-    from mara3_tpu.kernels import cloud_update as CU
-    from mara3_tpu.subprograms import cloud
-
-    cfg = cloud.config_template().create().update(
-        {"nr": 128, "num_decades": 0.5})
-    state = cloud.new_solution(cfg)
-    rv = jnp.asarray(state.radial_vertices, jnp.float32)
-    qv = jnp.asarray(state.polar_vertices, jnp.float32)
-    rc, qc = ops.midpoint_on_axis(rv), ops.midpoint_on_axis(qv)
-    dv = cloud.cell_volumes(rv, qv)
-    dAr = cloud.radial_face_areas(rv, qv)
-    dAq = cloud.polar_face_areas(rv, qv)
-    nr, nq = dv.shape
-    jet = cloud.make_jet_nozzle_model(cfg)
-    units = cloud.make_reference_units(cfg)
-    jet_static = (jet.Ej, jet.G0, jet.tj, jet.qj, jet.as_, jet.r0,
-                  units.mass_density, units.time)
-    dt = float(rv[1] - rv[0]) * cfg.get_double("cfl_number")
-    us = jnp.moveaxis(jnp.asarray(state.conserved, jnp.float32), -1, 0)
-    pg = jnp.zeros_like(us[0])
-    invr = jnp.broadcast_to((1.0 / rc)[:, None], (nr, nq))
-    cotq = jnp.broadcast_to(jnp.tan(jnp.pi / 2 - qc)[None, :], (nr, nq))
-
-    n = 4
-
-    def row(t):
-        r = cloud._inflow_row(qc, t, jet_static)
-        return jnp.stack([r[0, :, k] for k in range(5)]).astype(jnp.float32)
-
-    # reference: n chained one-step launches (sequential time accum).
-    # jit the step so the interpret-mode kernel traces ONCE — eager
-    # pallas interpret calls re-trace per call (~9 s each on this box)
-    # while execution is ~0.1 s.
-    import jax
-    step = jax.jit(lambda i1, i2, u, p: CU.fused_step_rk2(
-        i1, i2, u, p, dv, invr, cotq, dAr, dAq[:, :-1], dAq[:, 1:],
-        dt, 1.5, 2, 1e-8, TX=32, interpret=True))
-    uc, pc2, t = us, pg, 0.0
-    with pltpu.force_tpu_interpret_mode():
-        for _ in range(n):
-            uc, pc2 = step(row(t), row(t + dt), uc, pc2)
-            t = t + dt
-
-    # one launch for all n steps
-    u1, p1, t1 = cloud.advance_n_rk2_soa(
-        us, pg, 0.0, rv, qv, jet_static, dt, 1.5, 2, 1e-8, n, TX=32,
-        interpret=True)
-
-    np.testing.assert_allclose(np.asarray(u1), np.asarray(uc),
-                               rtol=2e-6, atol=1e-10)
-    np.testing.assert_allclose(np.asarray(p1), np.asarray(pc2),
-                               rtol=2e-6, atol=1e-12)
-    assert abs(t1 - t) < 1e-12
-
-
-def test_cloud_fast_driver_matches_host_driver(tmp_path):
+@pytest.mark.parametrize("method", [1, 2])
+@pytest.mark.parametrize("rk_order", [1, 2])
+def test_cloud_fast_driver_matches_host_driver(tmp_path, rk_order, method):
     """fast_step=1 (chunked lax.scan driver, one dispatch per planned-
     to-the-due chunk) must produce the same checkpoints as the per-step
     host loop: same numbering, same final time, same conserved state at
@@ -434,7 +158,8 @@ def test_cloud_fast_driver_matches_host_driver(tmp_path):
     for sub, flag in (("host", "fast_step=0"), ("fast", "fast_step=1")):
         d = tmp_path / sub
         d.mkdir()
-        assert run_cloud(d, flag) == 0
+        assert run_cloud(d, flag, f"rk_order={rk_order}",
+                         f"reconstruct_method={method}") == 0
 
     def last(d):
         names = sorted(f for f in os.listdir(d / "data")
@@ -448,70 +173,3 @@ def test_cloud_fast_driver_matches_host_driver(tmp_path):
     assert names_h == names_f
     np.testing.assert_allclose(t_f, t_h, rtol=1e-12)
     np.testing.assert_allclose(u_f, u_h, rtol=1e-6, atol=1e-12)
-
-
-@pytest.mark.heavy
-def test_fused_run_rk1_matches_chained_stages():
-    """rk=1 in the n-step launch (the reference's default rk_order) must
-    match n chained fused_stage launches with the pressure carry."""
-    import jax.numpy as jnp
-    import numpy as np
-    from jax.experimental.pallas import tpu as pltpu
-
-    from mara3_tpu.core import ops
-    from mara3_tpu.kernels import cloud_update as CU
-    from mara3_tpu.subprograms import cloud
-
-    cfg = cloud.config_template().create().update(
-        {"nr": 128, "num_decades": 0.5})
-    state = cloud.new_solution(cfg)
-    rv = jnp.asarray(state.radial_vertices, jnp.float32)
-    qv = jnp.asarray(state.polar_vertices, jnp.float32)
-    rc, qc = ops.midpoint_on_axis(rv), ops.midpoint_on_axis(qv)
-    dv = cloud.cell_volumes(rv, qv)
-    dAr = cloud.radial_face_areas(rv, qv)
-    dAq = cloud.polar_face_areas(rv, qv)
-    nr, nq = dv.shape
-    jet = cloud.make_jet_nozzle_model(cfg)
-    units = cloud.make_reference_units(cfg)
-    jet_static = (jet.Ej, jet.G0, jet.tj, jet.qj, jet.as_, jet.r0,
-                  units.mass_density, units.time)
-    dt = float(rv[1] - rv[0]) * cfg.get_double("cfl_number")
-    us = jnp.moveaxis(jnp.asarray(state.conserved, jnp.float32), -1, 0)
-    pg = jnp.zeros_like(us[0])
-    invr = jnp.broadcast_to((1.0 / rc)[:, None], (nr, nq))
-    cotq = jnp.broadcast_to(jnp.tan(jnp.pi / 2 - qc)[None, :], (nr, nq))
-
-    def row(t):
-        r = cloud._inflow_row(qc, t, jet_static)
-        return jnp.stack([r[0, :, k] for k in range(5)]).astype(jnp.float32)
-
-    n = 4
-    # jit: trace the interpret kernel once, not once per chained call
-    import jax
-    stage = jax.jit(lambda i1, u, p: CU.fused_stage(
-        i1, u, p, dv, invr, cotq, dAr, dAq[:, :-1], dAq[:, 1:],
-        dt, 1.5, 2, 1e-8, TX=32, interpret=True))
-    uc, pc2, t = us, pg, 0.0
-    with pltpu.force_tpu_interpret_mode():
-        for _ in range(n):
-            uc, pc2 = stage(row(t), uc, pc2)
-            t = t + dt
-
-    u1, p1, _ = cloud.advance_n_rk2_soa(
-        us, pg, 0.0, rv, qv, jet_static, dt, 1.5, 2, 1e-8, n, TX=32,
-        rk=1, interpret=True)
-    np.testing.assert_allclose(np.asarray(u1), np.asarray(uc),
-                               rtol=2e-6, atol=1e-10)
-    np.testing.assert_allclose(np.asarray(p1), np.asarray(pc2),
-                               rtol=2e-6, atol=1e-12)
-
-
-def test_resolve_multi_launch_by_backend():
-    """Both halves of cloud's multi_launch=-1 auto resolution (the
-    binary analog): fused_run on TPU backends, per-step elsewhere."""
-    from mara3_tpu.subprograms import cloud as C
-    assert C.resolve_multi_launch(-1, "tpu") == 1
-    assert C.resolve_multi_launch(-1, "cpu") == 0
-    assert C.resolve_multi_launch(0, "tpu") == 0
-    assert C.resolve_multi_launch(1, "cpu") == 1

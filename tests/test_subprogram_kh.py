@@ -1,8 +1,7 @@
-"""End-to-end tests of the kh subprogram (uniform periodic iso2d — the
-product workload for the single-launch v5/v4 kernels, VERDICT r3 weak #6):
+"""End-to-end tests of the kh subprogram (uniform periodic iso2d):
 conservation to round-off, restart bit-exactness across arbitrary chunk
-boundaries, kernel-path equivalence in interpret mode, and the full CLI
-file surface."""
+boundaries, the sharded path against the single-device one, and the full
+CLI file surface."""
 
 import pytest
 import os
@@ -27,7 +26,7 @@ def run_cli(argv, cwd):
 def _mini_cfg(**over):
     cfg = kh.config_template().create()
     base = dict(N=32, tfinal=0.05, cpi=0.02, dfi=0.02, tsi=0.01,
-                outdir=".", fast_step=0)
+                outdir=".")
     base.update(over)
     return cfg.update({k: str(v) for k, v in base.items()})
 
@@ -37,7 +36,7 @@ def test_kh_conserves_mass_and_momentum():
     u0 = kh.initial_conserved(cfg)
     dt = kh.fixed_timestep(cfg, u0)
     u1 = kh.advance_n(u0, 25, cs2=1.0, dx=1.0 / 32, dy=1.0 / 32, dt=dt,
-                      theta=1.8, kernel=False)
+                      theta=1.8)
     s0 = np.asarray(jnp.sum(u0, axis=(0, 1)))
     s1 = np.asarray(jnp.sum(u1, axis=(0, 1)))
     # periodic box: mass and both momentum components exact to round-off
@@ -45,23 +44,9 @@ def test_kh_conserves_mass_and_momentum():
     assert not np.isnan(np.asarray(u1)).any()
 
 
-def test_kh_kernel_path_matches_jnp_interpret():
-    # smallest v5-admissible shape: N=256 -> TX=128, 2 tiles, ny%128==0
-    cfg = _mini_cfg(N=256)
-    u0 = kh.initial_conserved(cfg).astype(jnp.float32)
-    dt = kh.fixed_timestep(cfg, u0)
-    kw = dict(cs2=1.0, dx=1.0 / 256, dy=1.0 / 256, dt=dt, theta=1.8)
-    # n=11 exercises the split: 8 kernel steps + 3 jnp remainder steps
-    a = kh.advance_n(u0, 11, kernel="interpret", **kw)
-    assert kh.LAST_PATH == "pallas_v5_rk1[8]+jnp[3]"
-    b = kh.advance_n(u0, 11, kernel=False, **kw)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                               rtol=2e-6, atol=2e-6)
-
-
 def test_kh_cli_file_surface_and_restart_bitexact(tmp_path):
     args = ["kh", "N=32", "tfinal=0.04", "cpi=0.02", "dfi=0.04",
-            "tsi=0.01", "outdir=.", "fast_step=0"]
+            "tsi=0.01", "outdir=."]
     a = tmp_path / "a"
     b = tmp_path / "b"
     a.mkdir()
@@ -93,7 +78,7 @@ def test_kh_cli_file_surface_and_restart_bitexact(tmp_path):
 
 def test_kh_diagnostics_fields(tmp_path):
     assert run_cli(["kh", "N=32", "tfinal=0.01", "cpi=1.0", "dfi=1.0",
-                    "tsi=1.0", "outdir=.", "fast_step=0"], tmp_path) == 0
+                    "tsi=1.0", "outdir=."], tmp_path) == 0
     with h5py.File(tmp_path / "diagnostics.0000.h5") as f:
         sigma = f["sigma"][()]
         vort = f["vorticity"][()]
@@ -103,23 +88,9 @@ def test_kh_diagnostics_fields(tmp_path):
     assert np.abs(vort).max() > 1.0
 
 
-def test_kh_kernel_request_on_bad_shape_raises():
-    cfg = _mini_cfg(N=24)   # 24 % 128 != 0 -> kernel path inadmissible
-    u0 = kh.initial_conserved(cfg)
-    dt = kh.fixed_timestep(cfg, u0)
-    try:
-        kh.advance_n(u0, 4, cs2=1.0, dx=1.0 / 24, dy=1.0 / 24, dt=dt,
-                     theta=1.8, kernel=True)
-    except ValueError as e:
-        assert "kernel path" in str(e)
-    else:
-        raise AssertionError("expected ValueError for N=24 kernel request")
-
-
 def test_kh_sharded_multichip_matches_jnp(tmp_path):
-    """shards=4 on the virtual CPU mesh (v4 stripes under shard_map with
-    ppermute halos, interpret mode) reproduces the single-device jnp
-    evolution."""
+    """shards=4 on the virtual CPU mesh (the jnp step under shard_map
+    with ppermute halos) reproduces the single-device evolution."""
     assert run_cli(["kh", "N=128", "tfinal=0.01", "cpi=0.01", "dfi=1.0",
                     "tsi=1.0", "outdir=.", "shards=4"], tmp_path) == 0
     with h5py.File(tmp_path / "chkpt.0001.h5") as f:
@@ -129,26 +100,20 @@ def test_kh_sharded_multichip_matches_jnp(tmp_path):
     cfg = _mini_cfg(N=128)
     u0 = kh.initial_conserved(cfg)
     want = kh.advance_n(u0, iters, cs2=1.0, dx=1.0 / 128, dy=1.0 / 128,
-                        dt=dt, theta=1.8, kernel=False)
+                        dt=dt, theta=1.8)
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-12,
                                atol=1e-12)
-    assert iters % 4 == 0   # sharded chunks advance in G=4 grains
 
 
 @pytest.mark.heavy
 def test_kh_rk2_paths_agree_and_conserve(tmp_path):
-    """rk_order=2: the v4 rk2 kernel path (interpret), the sharded path,
-    and the jnp Heun scheme all agree; conservation holds."""
+    """rk_order=2: the sharded CLI path and the single-device Heun scheme
+    agree; conservation holds."""
     cfg = _mini_cfg(N=128)
     u0 = kh.initial_conserved(cfg)
     dt = kh.fixed_timestep(cfg, u0)
-    kw = dict(cs2=1.0, dx=1.0 / 128, dy=1.0 / 128, dt=dt, theta=1.8,
-              rk_order=2)
-    a = kh.advance_n(u0, 8, kernel="interpret", **kw)
-    assert kh.LAST_PATH == "pallas_v5_rk2[8]+jnp[0]"
-    b = kh.advance_n(u0, 8, kernel=False, **kw)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                               rtol=1e-13, atol=1e-13)
+    a = kh.advance_n(u0, 8, cs2=1.0, dx=1.0 / 128, dy=1.0 / 128, dt=dt,
+                     theta=1.8, rk_order=2)
     s0 = np.asarray(jnp.sum(u0, axis=(0, 1)))
     s1 = np.asarray(jnp.sum(a, axis=(0, 1)))
     assert np.allclose(s1, s0, rtol=1e-12, atol=1e-12 * abs(s0[0]))
@@ -162,7 +127,7 @@ def test_kh_rk2_paths_agree_and_conserve(tmp_path):
         iters = int(f["solution/iteration"][()])
         dtc = float(f["solution/dt"][()])
     want = kh.advance_n(u0, iters, cs2=1.0, dx=1.0 / 128, dy=1.0 / 128,
-                        dt=dtc, theta=1.8, rk_order=2, kernel=False)
+                        dt=dtc, theta=1.8, rk_order=2)
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-12,
                                atol=1e-12)
 
@@ -183,8 +148,7 @@ def test_kh_rk2_is_second_order_in_time():
 
     def run(nsteps, rk):
         return kh.advance_n(u0, nsteps, cs2=1.0, dx=1 / N, dy=1 / N,
-                            dt=T / nsteps, theta=1.8, rk_order=rk,
-                            kernel=False)
+                            dt=T / nsteps, theta=1.8, rk_order=rk)
 
     orders, errs = {}, {}
     for rk in (1, 2):
@@ -202,7 +166,7 @@ def test_kh_bf16_precision_mode(tmp_path):
     trial), writes f32 checkpoints (exact for bf16 values), restarts in
     bf16, and tracks the f32 evolution at bf16 resolution."""
     args = ["kh", "N=32", "tfinal=0.02", "cpi=0.01", "dfi=1.0", "tsi=1.0",
-            "outdir=.", "fast_step=0"]
+            "outdir=."]
     a = tmp_path / "a"
     b = tmp_path / "b"
     a.mkdir()

@@ -183,7 +183,7 @@ def test_plot_kh_fields_and_time_series(tmp_path):
     os.chdir(tmp_path)
     try:
         assert kh.main(["kh", "N=32", "tfinal=0.02", "cpi=1.0", "dfi=0.01",
-                        "tsi=0.01", "outdir=.", "fast_step=0"]) == 0
+                        "tsi=0.01", "outdir=."]) == 0
     finally:
         os.chdir(old)
     pk = _load_tool("plot_kh")

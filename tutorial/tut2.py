@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Tutorial 2: array basics, the TPU-native way.
+"""Tutorial 2: array basics, the JAX way.
 
 The reference's tutorial/tut2.cpp introduces its lazy array library
 (ndarray-v2): arrays as shape + index->value mappings, composed with
